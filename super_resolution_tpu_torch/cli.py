@@ -1,0 +1,332 @@
+"""CLI of the port: the ``upscale`` and ``serve`` subcommands of the JAX
+package's CLI, with the same flags, running on the card.
+
+    python -m super_resolution_tpu_torch.cli upscale --image frame.png \
+        --checkpoint gen.pth --out sr.png
+    python -m super_resolution_tpu_torch.cli serve --checkpoint gen.pth \
+        --watch in/ --out sr/
+
+``--device`` (default ``cuda``) picks where the model runs; asking for
+``cuda`` on a machine without a card raises, and ``--device cpu`` runs
+every kernel's plain version on the CPU.  Checkpoints are torch ``.pth``
+files in any of the three naming families; orbax directories are the
+JAX package's format and are refused.  ``--data_parallel`` above 1
+needs DDP, which is not ported yet.  Default tile geometry: square 384,
+no height bucket, no alignment (the H100 geometry sweep is a ROADMAP
+item).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+import time
+
+import numpy as np
+
+
+def _build_cfg(args):
+    from super_resolution_tpu_torch.config import InferConfig, preset
+
+    cfg = preset(args.preset) if args.preset else InferConfig()
+
+    def ov(name, cur):
+        """CLI value if given, else the preset/default value."""
+        v = getattr(args, name, None)
+        return cur if v is None else v
+
+    gen = dataclasses.replace(
+        cfg.generator,
+        n_blocks=ov("residual_blocks", cfg.generator.n_blocks),
+        channels=ov("channels", cfg.generator.channels),
+        upsampler=ov("upsampler", cfg.generator.upsampler),
+        conv_impl=ov("conv_impl", cfg.generator.conv_impl),
+    )
+    data = dataclasses.replace(
+        cfg.data,
+        hr_patch=ov("hr_height", cfg.data.hr_patch),
+        hr_patch_w=ov("hr_width", cfg.data.hr_patch_w),
+    )
+    return dataclasses.replace(
+        cfg, generator=gen, data=data,
+        compute_dtype=ov("dtype", cfg.compute_dtype),
+        data_parallel=ov("data_parallel", cfg.data_parallel),
+        seed=ov("seed", cfg.seed))
+
+
+def _load_generator(args, cfg):
+    """(port state dict, cfg with the checkpoint's architecture)."""
+    from super_resolution_tpu_torch.import_torch import (
+        import_generator,
+        load_pth,
+    )
+
+    path = args.checkpoint
+    if os.path.isdir(path):
+        raise SystemExit(
+            f"{path!r} is a directory: orbax checkpoints are the JAX "
+            f"package's format; export one to .pth with "
+            f"`python -m super_resolution_tpu.cli export` first")
+    if not os.path.isfile(path):
+        raise SystemExit(f"checkpoint not found: {path!r} (expected a "
+                         f"torch .pth file)")
+    sd, gen_cfg = import_generator(load_pth(path),
+                                   strict=not args.lenient_import)
+    # the checkpoint determines the architecture, the command line keeps
+    # its runtime knobs
+    gen_cfg = dataclasses.replace(gen_cfg,
+                                  conv_impl=cfg.generator.conv_impl,
+                                  tail_up=cfg.generator.tail_up)
+    return sd, dataclasses.replace(cfg, generator=gen_cfg)
+
+
+def _halo_arg(v: str):
+    """argparse type for ``--halo``: an int or the literal 'auto'."""
+    if v.lower() == "auto":
+        return "auto"
+    try:
+        return int(v)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected an integer or 'auto', got {v!r}")
+
+
+def _resolve_halo(args) -> int:
+    """``--halo`` as an int; ``auto`` reads the checkpoint's stamped
+    admissible halo, falling back to the conservative 8."""
+    if args.halo != "auto":
+        return int(args.halo)
+    from super_resolution_tpu_torch.halo_sweep import (
+        halo_meta_path,
+        read_halo_meta,
+    )
+
+    meta = read_halo_meta(args.checkpoint)
+    if meta is None:
+        print(f"[cli] --halo auto: no release-metadata sidecar at "
+              f"{halo_meta_path(args.checkpoint)} — using conservative "
+              f"halo=8")
+        return 8
+    halo = meta.get("admissible_halo")
+    if halo is None:
+        print(f"[cli] --halo auto: sidecar "
+              f"{halo_meta_path(args.checkpoint)} exists but its sweep "
+              f"found NO admissible halo (threshold "
+              f"{meta.get('threshold_db')} dB) — using conservative halo=8")
+        return 8
+    print(f"[cli] --halo auto: halo={int(halo)} from release metadata")
+    return int(halo)
+
+
+def _resolve_tile_geometry(args):
+    """(tile, tile_w, bucket_h): square 384 with no height bucket unless
+    the flags say otherwise (``--tile_bucket 0`` also means none)."""
+    tile = args.tile if args.tile is not None else 384
+    bucket = args.tile_bucket or None
+    return tile, args.tile_w, bucket
+
+
+def _add_tile_flags(p: argparse.ArgumentParser):
+    p.add_argument("--tile", type=int, default=None,
+                   help="tile height incl. overlap (default 384)")
+    p.add_argument("--halo", type=_halo_arg, default="auto",
+                   help="tile overlap halo (int), or 'auto' (default): "
+                        "the checkpoint's stamped admissible halo, "
+                        "falling back to 8")
+    p.add_argument("--tile_bucket", type=int, default=None,
+                   help="quantize the tile height to multiples of this "
+                        "(default off; 0 also disables)")
+    p.add_argument("--tile_w", type=int, default=None,
+                   help="tile width for a rectangular grid (default: "
+                        "square --tile)")
+    p.add_argument("--tile_batch", type=int, default=2)
+
+
+def _add_common(p: argparse.ArgumentParser):
+    from super_resolution_tpu_torch.config import INFER_PRESETS
+
+    p.add_argument("--preset", choices=INFER_PRESETS, default=None)
+    p.add_argument("--residual_blocks", type=int, default=None,
+                   help="number of RRDB blocks (default 23)")
+    p.add_argument("--channels", type=int, default=None)
+    p.add_argument("--hr_height", type=int, default=None)
+    p.add_argument("--hr_width", type=int, default=None)
+    p.add_argument("--upsampler", choices=("nearest_conv", "pixelshuffle"),
+                   default=None)
+    p.add_argument("--dtype", default=None,
+                   choices=("bfloat16", "float32"))
+    p.add_argument("--conv_impl", default=None,
+                   choices=("auto", "lax", "pallas", "pallas_fused",
+                            "pallas_cf", "pallas_cf_tail"),
+                   help="the port takes only 'auto' (every conv dispatches "
+                        "by the tensor's device); the other names are the "
+                        "JAX package's and raise")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--data_parallel", type=int, default=None,
+                   help="DP-of-tiles over this many devices (the port "
+                        "runs one device until DDP is ported)")
+    p.add_argument("--vgg_weights", default=None,
+                   help="accepted for command-line compatibility; "
+                        "inference does not read it")
+    p.add_argument("--lenient_import", action="store_true",
+                   help="ignore unmapped keys when importing a torch .pth")
+    p.add_argument("--compile_cache_dir", default=None,
+                   help="accepted for command-line compatibility: the "
+                        "port runs eagerly and builds its kernels into "
+                        "the package's _build/ directory")
+    p.add_argument("--no_compile_cache", action="store_true",
+                   help="accepted for command-line compatibility")
+    p.add_argument("--device", default="cuda",
+                   help="where the model runs: 'cuda' (default) or 'cpu'")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(prog="super_resolution_tpu_torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+
+    u = sub.add_parser("upscale",
+                       help="×4 upscale an image, or every image in a "
+                            "directory (tiled)")
+    _add_common(u)
+    u.add_argument("--image", required=True,
+                   help="input image, or a directory of images")
+    u.add_argument("--checkpoint", required=True)
+    u.add_argument("--out", required=True,
+                   help="output image, or a directory when --image is one")
+    _add_tile_flags(u)
+    u.add_argument("--self_ensemble", action="store_true",
+                   help="x8 flip/rotation test-time augmentation")
+
+    sv = sub.add_parser("serve",
+                        help="resident model over a frame stream: watch a "
+                             "directory, upscale new frames as they appear")
+    _add_common(sv)
+    sv.add_argument("--checkpoint", required=True)
+    sv.add_argument("--watch", required=True,
+                    help="directory to watch for incoming LR frames")
+    sv.add_argument("--out", required=True, help="output directory")
+    _add_tile_flags(sv)
+    sv.add_argument("--poll", type=float, default=0.5,
+                    help="poll interval, seconds")
+    sv.add_argument("--once", action="store_true",
+                    help="drain the current backlog and exit")
+    sv.add_argument("--max_frames", type=int, default=None,
+                    help="exit after N frames (default: run forever)")
+    sv.add_argument("--pipeline_write",
+                    action=argparse.BooleanOptionalAction, default=True,
+                    help="overlap PNG encode+save of frame N with the "
+                         "compute of frame N+1 (default on)")
+    sv.add_argument("--prewarm", default=None,
+                    help="comma-separated WxH frame sizes (e.g. "
+                         "'1920x1080,2048x2048'): one warm-up forward per "
+                         "size before watching")
+
+    args = parser.parse_args(argv)
+    cfg = _build_cfg(args)
+    if cfg.data_parallel > 1:
+        raise NotImplementedError(
+            "--data_parallel > 1 needs DDP, which the port does not have "
+            "yet (ROADMAP.md Queue 1)")
+
+    import torch
+
+    from super_resolution_tpu_torch.data import (
+        list_images,
+        merge_alpha,
+        normalize,
+        split_alpha,
+        to_uint8_image,
+    )
+    from super_resolution_tpu_torch.device import resolve_device
+    from super_resolution_tpu_torch.parallel import tiled_upscale
+    from super_resolution_tpu_torch.train.steps import make_infer_fn
+
+    device = resolve_device(args.device)
+    g_sd, cfg = _load_generator(args, cfg)
+    infer = make_infer_fn(cfg, g_sd, device)
+    mean, std = cfg.data.normalize_mean, cfg.data.normalize_std
+    scale = cfg.generator.scale
+    halo = _resolve_halo(args)
+    tile, tile_w, bucket_h = _resolve_tile_geometry(args)
+
+    def up(lrn):
+        return tiled_upscale(infer, lrn, scale=scale, tile=tile, halo=halo,
+                             tile_w=tile_w, bucket_h=bucket_h,
+                             tile_batch=args.tile_batch)
+
+    def upscale_u8(lr_u8: np.ndarray, ensemble: bool = False) -> np.ndarray:
+        # ship uint8 and convert on the device: a quarter of the bytes.
+        # np.array copies: a decoded PIL frame is read-only
+        lr = torch.from_numpy(np.array(lr_u8)).to(device)
+        lrn = normalize(lr.float() / 255.0, mean, std)
+        if ensemble:
+            from super_resolution_tpu_torch.ops.ensemble import (
+                self_ensemble,
+            )
+
+            srn = self_ensemble(up, lrn)
+        else:
+            srn = up(lrn)
+        return to_uint8_image(srn, cfg.data).cpu().numpy()
+
+    if args.cmd == "upscale":
+        from PIL import Image
+
+        def upscale_one(src: str, dst: str):
+            with Image.open(src) as im:
+                lr_u8, alpha_u8 = split_alpha(im)
+            sr_u8 = upscale_u8(lr_u8, args.self_ensemble)
+            if alpha_u8 is not None and dst.lower().endswith((".jpg",
+                                                              ".jpeg")):
+                print(f"[cli] warning: {src} has an alpha channel but "
+                      f"{dst} is JPEG — transparency dropped (use .png)")
+                alpha_u8 = None
+            sr_rgba = merge_alpha(sr_u8, alpha_u8, scale, device)
+            try:
+                Image.fromarray(sr_rgba).save(dst)
+                sr_u8 = sr_rgba
+            except (OSError, ValueError, KeyError):
+                if alpha_u8 is None:
+                    raise            # not an alpha problem — real error
+                print(f"[cli] warning: {dst} format cannot store the "
+                      f"alpha channel of {src} — transparency dropped "
+                      f"(use .png)")
+                Image.fromarray(sr_u8).save(dst)
+            print(f"[cli] {lr_u8.shape[1]}x{lr_u8.shape[0]} → "
+                  f"{sr_u8.shape[1]}x{sr_u8.shape[0]} saved to {dst}")
+
+        if os.path.isdir(args.image):      # batch mode over a directory
+            os.makedirs(args.out, exist_ok=True)
+            for src in list_images(args.image):
+                stem, _ = os.path.splitext(os.path.basename(src))
+                upscale_one(src, os.path.join(args.out,
+                                              f"{stem}_x{scale}.png"))
+        else:
+            upscale_one(args.image, args.out)
+        return 0
+
+    from super_resolution_tpu_torch.serve import serve_watch
+
+    if args.prewarm:
+        for size in args.prewarm.split(","):
+            try:
+                w, h = (int(v) for v in size.lower().split("x"))
+            except ValueError:
+                raise SystemExit(f"--prewarm expects WxH sizes, got {size!r}")
+            t0 = time.perf_counter()
+            upscale_u8(np.zeros((h, w, 3), np.uint8))
+            print(f"[serve] prewarmed {w}x{h} in "
+                  f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    n = serve_watch(upscale_u8, args.watch, args.out, scale=scale,
+                    poll_s=args.poll, once=args.once,
+                    max_frames=args.max_frames,
+                    pipeline_write=args.pipeline_write, device=device)
+    print(f"[serve] processed {n} frames")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,10 @@
+"""Ops of the port: the dense-block kernel, shuffles, PIL-parity bicubic
+resampling and self-ensemble."""
+
+from super_resolution_tpu_torch.ops.dense_block import dense_block  # noqa: F401
+from super_resolution_tpu_torch.ops.ensemble import self_ensemble  # noqa: F401
+from super_resolution_tpu_torch.ops.resize import bicubic_resize  # noqa: F401
+from super_resolution_tpu_torch.ops.shuffle import (  # noqa: F401
+    nearest_upsample,
+    pixel_shuffle,
+)
