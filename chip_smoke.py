@@ -9,11 +9,17 @@ and prints no result line:
 
 1. the card (name and power limit from nvidia-smi), torch and CUDA;
    every kernel of the port built from ``csrc/`` with nvcc (timed).
-2. kernel: the dense-block kernel against its plain PyTorch version on
-   the card at six shapes (flagship bf16, odd-geometry fp32, the
-   growth-64 slope-0.01 variant, a narrow one, and the two tile batches
-   of the serve phase), within the tolerances below; times in turns (plain, kernel, library, library, kernel,
-   plain) with CUDA events, the bound and the roofline share.
+2. kernel: the dense-block forward kernel against its plain PyTorch
+   version on the card at seven shapes (flagship bf16, odd-geometry
+   fp32, the growth-64 slope-0.01 variant, a narrow one, the two tile
+   batches of the serve phase and the training shape), within the
+   tolerances below; times in turns (plain, kernel, library, library,
+   kernel, plain) with CUDA events, the bound and the roofline share.
+   Then the backward kernels (data gradient, weight gradient and its
+   reduction) against their plain version at five shapes (the training
+   shape (16, 64, 48, 48) bf16, odd fp32, growth 64 slope 0.01, narrow,
+   48 x 6): dx, every dW and db, two runs bit for bit, the same times
+   (library: autograd through five cuDNN convs) and the bound.
 3. model: the full-width 23-block RRDBNet in bf16 on 8×128² LR tiles
    (seeded random weights) through ``train.steps.make_infer_fn``: the
    launch count of one forward, agreement with the same forward through
@@ -26,7 +32,18 @@ and prints no result line:
    0 frames, exactly one kernel launch per conv of every dense block
    of every tile batch, and both frames within the stated uint8 limits
    of ``cli upscale`` through the plain dense block.
-5. the ``kernels`` JSON line, the card's name and power limit as
+5. train: ``cli train --preset train_gan_dfm`` on synthetic patches at
+   full width (23 blocks, bf16, batch 16 of 192 x 192 HR patches), three
+   warmup and three GAN steps: launch counts per generator update
+   against their formulas, finite metrics, a falling warmup loss, an EMA
+   that trails the parameters, the checkpoint reloaded and upscaled by
+   ``cli upscale``; one more GAN step from that checkpoint through the
+   kernels against the same step through the plain dense block
+   (forward and backward), a warmup step likewise with every gradient
+   tensor held, and a float32 GAN step at a small geometry per gradient
+   tensor; ms per step, HR MP/s, the device's idle share and
+   top operations from ``torch.profiler``, peak memory.
+6. the ``kernels`` JSON line, the card's name and power limit as
    nvidia-smi prints them, then the ``ok`` JSON line last.
 
 It needs a CUDA card and the repository around it; without either it
@@ -72,6 +89,37 @@ REPLACES = ("super_resolution_tpu/ops/pallas/dense_block_cf.py:347 "
             "dense_block_cf_ext.py:309 fused_dense_block_cf9")
 
 
+REPLACES_BWD = ("super_resolution_tpu/ops/pallas/dense_block_cf_vjp.py:438 "
+                "fused_dense_block_cf5_bwd")
+# backward kernels vs plain, each tensor against its own largest value:
+# max |k - p| <= tol * max |p|.  float32: sums over all pixels in another
+# order.  bfloat16: dx is rounded to bf16 and carries rounding flips of
+# the cotangents above it, like the forward (two ULPs); dW and db sum
+# tens of thousands of pixels, so a flipped rounding of a few cotangents
+# moves them by far less than one bf16 ULP of their largest entry.
+BWD_TOL = {"bfloat16": dict(dx=2.0 ** -6, dw=2.0 ** -8, db=2.0 ** -8),
+           "float32": dict(dx=1e-4, dw=1e-4, db=1e-4)}
+TRAIN_SHAPE = (16, 64, 48, 48)     # one dense block's input in training
+# A training step through the kernels vs through the plain dense block,
+# full width, bf16, from the checkpoint of the train phase.  The two
+# forwards differ by bf16 rounding flips (model phase), which the losses
+# average over all pixels.  In the warmup step the cotangent of SR is
+# sign(SR - HR) / n, the same on both sides, so G's gradients differ
+# only by the flips of 69 blocks' backward: each tensor is held to 5e-2
+# of its largest value.  In the GAN step the cotangent comes through D,
+# whose BatchNorms see the almost constant SR image of a barely trained
+# G: their E[x^2] - E[x]^2 cancels and amplifies the flips, so there
+# only the losses and the gradient norms are held, the norm of G's
+# loosely (measured 0.047 on an NVIDIA H100 80GB HBM3, 700 W; a missing
+# or doubled term moves it by tens of percent).
+STEP_LOSS_RTOL = 1e-2
+STEP_GRAD_NORM_RTOL = 1e-1
+STEP_WARMUP_GRAD_TOL = 5e-2
+# the same at a small float32 geometry, per gradient tensor, against
+# the tensor's largest value: summation order only
+STEP_FP32_GRAD_TOL = 1e-4
+
+
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
@@ -107,6 +155,29 @@ def block_bound(shape, growth, dtype_name):
             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
 
 
+def make_block(shape, growth, dtype, seed):
+    """Seeded x, packed weights, OIHW weights and biases of one dense
+    block on the card."""
+    import torch
+
+    from super_resolution_tpu_torch.ops.dense_block import pack_weight
+
+    gen = torch.Generator().manual_seed(seed)
+    c = shape[1]
+    x = torch.randn(shape, generator=gen).to("cuda", dtype)
+    ws, ws_oihw, bs = [], [], []
+    cin = c
+    for k in range(5):
+        cout = c if k == 4 else growth
+        wk = torch.randn(cout, cin, 3, 3, generator=gen) \
+            * math.sqrt(2.0 / (9 * cin))
+        ws_oihw.append(wk.to("cuda", dtype))
+        ws.append(pack_weight(wk).to("cuda", dtype))
+        bs.append((torch.randn(cout, generator=gen) * 0.1).to("cuda"))
+        cin += growth
+    return x, ws, ws_oihw, bs
+
+
 def kernel_phase():
     import torch
     import torch.nn.functional as F
@@ -115,7 +186,6 @@ def kernel_phase():
     from super_resolution_tpu_torch.ops.dense_block import (
         dense_block,
         dense_block_plain,
-        pack_weight,
     )
 
     cases = [  # name, (B, C, H, W), growth, dtype, slope
@@ -127,23 +197,13 @@ def kernel_phase():
         # tiles; the 300-row frame is one short tile high)
         ("cli_tile", (2, 64, 384, 384), 32, "bfloat16", 0.2),
         ("cli_tile_short", (2, 64, 300, 384), 32, "bfloat16", 0.2),
+        ("train", TRAIN_SHAPE, 32, "bfloat16", 0.2),
     ]
     results = {}
     for name, shape, growth, dtype_name, slope in cases:
         dtype = getattr(torch, dtype_name)
-        gen = torch.Generator().manual_seed(len(results))
         b, c, h, w = shape
-        x = torch.randn(shape, generator=gen).to("cuda", dtype)
-        ws, ws_oihw, bs = [], [], []
-        cin = c
-        for k in range(5):
-            cout = c if k == 4 else growth
-            wk = torch.randn(cout, cin, 3, 3, generator=gen) \
-                * math.sqrt(2.0 / (9 * cin))
-            ws_oihw.append(wk.to("cuda", dtype))
-            ws.append(pack_weight(wk).to("cuda", dtype))
-            bs.append((torch.randn(cout, generator=gen) * 0.1).to("cuda"))
-            cin += growth
+        x, ws, ws_oihw, bs = make_block(shape, growth, dtype, len(results))
         kw = dict(res_scale=0.2, slope=slope)
 
         def kernel():
@@ -203,12 +263,153 @@ def kernel_phase():
     return results
 
 
+def bwd_bound(shape, growth, dtype_name):
+    """(bound_ms, bound_by, flops, bytes) of one dense block's backward:
+    twice the forward's operations (a data and a weight product per
+    conv); the saved feature buffer (x and x_1..x_4), the cotangent and
+    the weights read once, dx, dW (f32) and db written once."""
+    b, c, h, w = shape
+    elt = 2 if dtype_name == "bfloat16" else 4
+    _, _, fwd_flops, _ = block_bound(shape, growth, dtype_name)
+    n_w = sum(9 * (c + k * growth) * (c if k == 4 else growth)
+              for k in range(5))
+    n_b = 4 * growth + c
+    pix = b * h * w
+    nbytes = (pix * (c + 4 * growth) * elt      # feature buffer
+              + 2 * pix * c * elt               # g in, dx out
+              + n_w * elt                       # weights in
+              + (n_w + n_b) * 4)                # dW, db out
+    flops = 2 * fwd_flops
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def bwd_kernel_phase():
+    import torch
+    import torch.nn.functional as F
+
+    from super_resolution_tpu_torch.device import no_tf32
+    from super_resolution_tpu_torch.ops.dense_block import (
+        BWD_LAUNCHES_PER_BLOCK,
+        dense_block,
+        dense_block_bwd,
+        plain_backward,
+    )
+
+    cases = [  # name, (B, C, H, W), growth, dtype, slope
+        ("train", TRAIN_SHAPE, 32, "bfloat16", 0.2),
+        ("odd_fp32", (1, 64, 37, 53), 32, "float32", 0.2),
+        ("growth64", (2, 64, 96, 80), 64, "bfloat16", 0.01),
+        ("narrow", (2, 16, 40, 72), 8, "bfloat16", 0.2),
+        ("w6", (16, 64, 48, 6), 32, "bfloat16", 0.2),
+    ]
+    results = {}
+    for name, shape, growth, dtype_name, slope in cases:
+        dtype = getattr(torch, dtype_name)
+        x, ws, ws_oihw, bs = make_block(shape, growth, dtype,
+                                        100 + len(results))
+        g = torch.randn(shape, generator=torch.Generator().manual_seed(
+            200 + len(results))).to("cuda", dtype)
+        kw = dict(res_scale=0.2, slope=slope)
+
+        def rel(got, want):
+            want = want.float()
+            return ((got.float() - want).abs().max()
+                    / want.abs().max().clamp_min(1e-30)).item()
+
+        with no_tf32():
+            with torch.no_grad():
+                _, feats = dense_block(x, ws, bs, save_acts=True, **kw)
+                before = dense_block_bwd.launches
+                dx, dws, dbs = dense_block_bwd(feats, ws, g, **kw)
+                torch.cuda.synchronize()
+                if dense_block_bwd.launches - before != \
+                        BWD_LAUNCHES_PER_BLOCK:
+                    fail(f"{name}: one backward counted "
+                         f"{dense_block_bwd.launches - before} launches")
+                rx, rws, rbs = plain_backward(feats, ws, g, **kw)
+                dx2, dws2, dbs2 = dense_block_bwd(feats, ws, g, **kw)
+                torch.cuda.synchronize()
+            repeats = torch.equal(dx, dx2) and all(
+                torch.equal(a, b_) for a, b_ in zip(dws + dbs, dws2 + dbs2))
+            err = dict(dx=rel(dx, rx),
+                       dw=[rel(a, b_) for a, b_ in zip(dws, rws)],
+                       db=[rel(a, b_) for a, b_ in zip(dbs, rbs)])
+            max_abs = (dx.float() - rx.float()).abs().max().item()
+            finite = all(bool(torch.isfinite(t.float()).all())
+                         for t in (dx, *dws, *dbs))
+            tol = BWD_TOL[dtype_name]
+            ok = (finite and dx.dtype == dtype and dx.shape == x.shape
+                  and err["dx"] <= tol["dx"]
+                  and max(err["dw"]) <= tol["dw"]
+                  and max(err["db"]) <= tol["db"])
+
+            # the library yardstick: autograd through five cuDNN convs
+            # and torch.cat in the working dtype, backward only (the
+            # graph is built once and kept); never called by the port
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (x, *ws_oihw, *(bk.to(dtype) for bk in bs))]
+            f_ = leaves[0]
+            for k in range(4):
+                o = F.leaky_relu(F.conv2d(f_, leaves[1 + k], leaves[6 + k],
+                                          padding=1), slope)
+                f_ = torch.cat([f_, o], 1)
+            y_lib = leaves[0] + 0.2 * F.conv2d(f_, leaves[5], leaves[10],
+                                               padding=1)
+
+            def kernel():
+                return dense_block_bwd(feats, ws, g, **kw)
+
+            def plain():
+                return plain_backward(feats, ws, g, **kw)
+
+            def library():
+                return torch.autograd.grad(y_lib, leaves, g,
+                                           retain_graph=True)
+
+            fns = {"plain": plain, "kernel": kernel, "library": library}
+            iters = 20
+            with torch.no_grad():
+                for fn in fns.values():
+                    fn()
+                times = {k: [] for k in fns}
+                for label in ("plain", "kernel", "library", "library",
+                              "kernel", "plain"):
+                    times[label].append(time_ms(fns[label], iters))
+            # the wrapper's time above includes its eager glue and is
+            # bound by the host at these sizes; the kernels alone:
+            dev_ms = own_device_ms(kernel)
+        ms = {k: sum(v) / len(v) for k, v in times.items()}
+        bound_ms, bound_by, flops, nbytes = bwd_bound(shape, growth,
+                                                      dtype_name)
+        results[name] = dict(
+            shape=list(shape), growth=growth, dtype=dtype_name, slope=slope,
+            rel_err=err, tol=tol, max_abs_err=max_abs,
+            repeats_bit_for_bit=repeats, ok=ok,
+            kernel_ms=ms["kernel"], kernels_device_ms=dev_ms,
+            plain_ms=ms["plain"],
+            library_ms=ms["library"], bound_ms=bound_ms, bound_by=bound_by,
+            flops=flops, bytes=nbytes,
+            roofline_share=bound_ms / ms["kernel"],
+            tflops=flops / (ms["kernel"] * 1e-3) / 1e12)
+        print("[kernel-bwd] " + json.dumps({name: results[name]}),
+              flush=True)
+        if not ok:
+            fail(f"{name}: backward kernels disagree with their plain "
+                 f"version: relative errors {err}, tolerances {tol}")
+        if not repeats:
+            fail(f"{name}: two runs of the backward differ (the two-pass "
+                 f"weight gradient should repeat bit for bit)")
+    return results
+
+
 def model_phase():
     import numpy as np
     import torch
 
     import super_resolution_tpu_torch.models.rrdb as rrdb
-    from super_resolution_tpu_torch.config import GeneratorConfig, InferConfig
+    from super_resolution_tpu_torch.config import GeneratorConfig, TrainConfig
     from super_resolution_tpu_torch.ops.dense_block import (
         LAUNCHES_PER_BLOCK,
         dense_block,
@@ -218,7 +419,7 @@ def model_phase():
 
     gcfg = GeneratorConfig(init=SEED_INIT)    # 23 blocks, 64 / 32
     sd = rrdb.RRDBNet(gcfg, torch.Generator().manual_seed(0)).state_dict()
-    infer = make_infer_fn(InferConfig(compute_dtype="bfloat16"), sd, "cuda")
+    infer = make_infer_fn(TrainConfig(compute_dtype="bfloat16"), sd, "cuda")
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.standard_normal((8, 128, 128, 3))
                          .astype(np.float32)).cuda()
@@ -259,7 +460,7 @@ def model_phase():
     if not psnr >= BF16_MODEL_PSNR_FLOOR_DB:
         fail(f"bf16 model PSNR {psnr} dB below the floor")
 
-    infer32 = make_infer_fn(InferConfig(compute_dtype="float32"), sd, "cuda")
+    infer32 = make_infer_fn(TrainConfig(compute_dtype="float32"), sd, "cuda")
     x32 = x[:2, :64, :64].contiguous()
     out32 = infer32(x32)
     ref32 = through_plain(infer32, x32)
@@ -284,7 +485,7 @@ def model_phase():
           f"{block_flops / flops:.4f} of it in the dense blocks; bound "
           f"{bound_ms:.3f} ms, roofline share {bound_ms / ms:.4f}",
           flush=True)
-    profile_forward(infer, x, ms)
+    profile_device(lambda: infer(x), ms, "profile")
     return dict(launches=launches, want=want, psnr_db=psnr, ms=ms,
                 mp_per_s=mps)
 
@@ -310,36 +511,82 @@ def forward_flops(gcfg, b, h, w):
     return pix * (lr + hr), pix * gcfg.n_blocks * gcfg.n_dense * block
 
 
-def profile_forward(infer, x, ms):
-    """Device time of one forward by kernel, from torch.profiler: the
-    dense-block kernel's share and the device's idle share of the
-    unprofiled ms per batch.  Prints 'not measured' where the profiler
-    records no device kernels."""
+# names of the port's own kernels in a profile (csrc/*.cu)
+OWN_KERNELS = ("conv3x3_", "dgrad3x3", "wgrad3x3", "wgrad_reduce")
+
+
+def device_times(fn):
+    """(profile, device ms by kernel name) of one call of ``fn`` under
+    torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        infer(x)
+        fn()
         torch.cuda.synchronize()
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # kernels and copies only: an annotation carried over to the
+        # device (Optimizer.step#Adam.step) spans its kernels and the
+        # gaps between them, and would count both twice
+        if e.device_type == DeviceType.CUDA and not (
+                getattr(e, "is_user_annotation", False)
+                or e.name.startswith(("Optimizer.", "ProfilerStep"))):
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us() / 1e3
+    return prof, by_name
+
+
+def own_device_ms(fn, calls: int = 5):
+    """Device ms per call that ``fn`` spends in the port's own kernels
+    (no host time, no PyTorch glue kernels); None where the profiler
+    records no device kernels."""
+    def many():
+        for _ in range(calls):
+            fn()
+
+    _, by_name = device_times(many)
+    own = [t for n, t in by_name.items()
+           if any(k in n for k in OWN_KERNELS)]
+    return sum(own) / calls if own else None
+
+
+def profile_device(fn, ms, tag):
+    """Device time of one call of ``fn`` by kernel, from torch.profiler:
+    the share of the port's own kernels and the device's idle share of
+    the unprofiled ``ms`` per call.  Prints 'not measured' where the
+    profiler records no device kernels."""
+    prof, by_name = device_times(fn)
     if not by_name:
-        print("[profile] device time by kernel: not measured (the profiler "
+        print(f"[{tag}] device time by kernel: not measured (the profiler "
               "recorded no CUDA kernels)", flush=True)
         return
     busy = sum(by_name.values())
-    dense = sum(t for n, t in by_name.items() if "conv3x3_" in n)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print("[profile] " + json.dumps({
+    dense = sum(t for n, t in by_name.items()
+                if any(k in n for k in OWN_KERNELS))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"[{tag}] " + json.dumps({
         "device_busy_ms": busy, "dense_block_kernel_ms": dense,
         "dense_block_share_of_busy": dense / busy,
         "idle_share_of_batch": max(0.0, 1 - busy / ms),
-        "top_kernels_ms": {n[:90]: t for n, t in top}}), flush=True)
+        "own_kernels_ms": {
+            n.split("(anonymous namespace)::")[1].split("(")[0]: t
+            for n, t in sorted(by_name.items())
+            if any(k in n for k in OWN_KERNELS)},
+        "top_kernels_ms": {n[:90]: t for n, t in top},
+        # where the host spends the call (under the profiler, which
+        # slows the host: read the order, not the sizes)
+        "top_host_ops_self_ms": {
+            a.key[:60]: a.self_cpu_time_total / 1e3
+            for a in sorted(prof.key_averages(),
+                            key=lambda a: -a.self_cpu_time_total)[:10]},
+        "host_ops": sum(a.count for a in prof.key_averages()
+                        if a.key.startswith("aten::")),
+        "kernel_launches": sum(a.count for a in prof.key_averages()
+                               if a.key == "cudaLaunchKernel")}),
+        flush=True)
 
 
 def serve_phase():
@@ -469,6 +716,285 @@ def serve_phase():
     return res
 
 
+def train_phase():
+    import dataclasses
+    import importlib
+    import statistics
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    import super_resolution_tpu_torch.train.loop as loop
+    from super_resolution_tpu_torch import cli
+    from super_resolution_tpu_torch.checkpoint import restore_checkpoint
+    from super_resolution_tpu_torch.config import preset
+    from super_resolution_tpu_torch.data import (
+        SyntheticPatches,
+        preprocess_batch,
+    )
+    from super_resolution_tpu_torch.train.state import init_state
+    from super_resolution_tpu_torch.train.steps import (
+        make_gan_step,
+        make_pretrain_step,
+    )
+
+    # the module (the package's ``ops`` exports a function of its name)
+    ops = importlib.import_module(
+        "super_resolution_tpu_torch.ops.dense_block")
+    cfg = preset("train_gan_dfm")      # 23 blocks, 64 / 32, bf16, batch 16
+    gcfg = cfg.generator
+    n_blocks = gcfg.n_blocks * gcfg.n_dense
+    want_fwd = n_blocks * ops.LAUNCHES_PER_BLOCK
+    want_bwd = n_blocks * ops.BWD_LAUNCHES_PER_BLOCK
+    n_warmup, n_steps = 3, 6
+
+    # per-step records: the loop logs windowed means, so the steps it
+    # builds are wrapped to time each one and keep its metrics
+    records = []
+
+    def recording(make, kind):
+        def wrapped(step_cfg):
+            step = make(step_cfg)
+
+            def timed(state, batch):
+                torch.cuda.synchronize()
+                f0, b0 = ops.dense_block.launches, \
+                    ops.dense_block_bwd.launches
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                metrics = step(state, batch)
+                torch.cuda.synchronize()
+                records.append(dict(
+                    kind=kind, ms=(time.perf_counter() - t0) * 1e3,
+                    fwd=ops.dense_block.launches - f0,
+                    bwd=ops.dense_block_bwd.launches - b0,
+                    peak_bytes=torch.cuda.max_memory_allocated(),
+                    metrics={k: float(v) for k, v in metrics.items()}))
+                return metrics
+
+            return timed
+
+        return wrapped
+
+    def swapped(fn):
+        """Run ``fn`` with the dense block's forward and backward
+        replaced by their plain versions."""
+        orig = ops.dense_block, ops.dense_block_bwd
+        ops.dense_block, ops.dense_block_bwd = \
+            ops.plain_forward, ops.plain_backward
+        try:
+            return fn()
+        finally:
+            ops.dense_block, ops.dense_block_bwd = orig
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+
+    def worst_grad(state_a, state_b):
+        """(delta over the tensor's largest value, name) of the gradient
+        tensor of G that differs most between two states."""
+        return max(
+            (float((pa.grad - pb.grad).abs().max()
+                   / pb.grad.abs().max().clamp_min(1e-30)), name)
+            for (name, pa), pb in zip(state_a.g.named_parameters(),
+                                      state_b.g.parameters()))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, log = os.path.join(tmp, "ck"), os.path.join(tmp, "log")
+        orig_makers = loop.make_pretrain_step, loop.make_gan_step
+        loop.make_pretrain_step = recording(orig_makers[0], "warmup")
+        loop.make_gan_step = recording(orig_makers[1], "gan")
+        ops.dense_block.launches = 0
+        ops.dense_block_bwd.launches = 0
+        try:
+            rc = cli.main(["train", "--preset", "train_gan_dfm",
+                           "--dataset_dir", os.path.join(tmp, "no_dataset"),
+                           "--steps", str(n_steps), "--warmup_batches",
+                           str(n_warmup), "--checkpoint_dir", ck,
+                           "--log_dir", log])
+        finally:
+            loop.make_pretrain_step, loop.make_gan_step = orig_makers
+        fwd_launches = ops.dense_block.launches
+        bwd_launches = ops.dense_block_bwd.launches
+        if rc != 0:
+            fail(f"cli train returned {rc}")
+        for i, r in enumerate(records):
+            print(f"[train] step {i + 1} " + json.dumps(r), flush=True)
+        kinds = [r["kind"] for r in records]
+        if kinds != ["warmup"] * n_warmup + ["gan"] * (n_steps - n_warmup):
+            fail(f"steps ran as {kinds}")
+        print(f"[train] dense-block launches per generator update: forward "
+              f"{sorted({r['fwd'] for r in records})} (want {n_blocks} "
+              f"blocks x {ops.LAUNCHES_PER_BLOCK} = {want_fwd}), backward "
+              f"{sorted({r['bwd'] for r in records})} (want {n_blocks} x "
+              f"{ops.BWD_LAUNCHES_PER_BLOCK} = {want_bwd}); over "
+              f"{n_steps} steps {fwd_launches} and {bwd_launches}",
+              flush=True)
+        if any(r["fwd"] != want_fwd or r["bwd"] != want_bwd
+               for r in records) or fwd_launches != n_steps * want_fwd \
+                or bwd_launches != n_steps * want_bwd:
+            fail("the training path did not launch the forward kernel once "
+                 "per conv and the backward kernels three times per conv "
+                 "of every dense block of every generator update")
+        for i, r in enumerate(records):
+            bad = [k for k, v in r["metrics"].items() if not math.isfinite(v)]
+            if bad:
+                fail(f"step {i + 1}: metrics {bad} are not finite")
+        gan_names = {"loss_pixel", "loss_adv", "loss_percep", "loss_g",
+                     "loss_d", "psnr", "grad_norm_g", "grad_norm_d"}
+        if set(records[-1]["metrics"]) != gan_names:
+            fail(f"GAN step metrics {sorted(records[-1]['metrics'])}")
+        first, third = (records[i]["metrics"]["loss_pixel"] for i in (0, 2))
+        print(f"[train] warmup loss_pixel: step 1 {first:.6f}, step 3 "
+              f"{third:.6f}", flush=True)
+        if not third < first:
+            fail("the warmup loss did not fall over three steps")
+
+        tree = torch.load(os.path.join(ck, str(n_steps), "state.pt"),
+                          map_location="cpu", weights_only=True)
+        ema_gap = max(float((tree["g_ema"][k] - v).abs().max())
+                      for k, v in tree["g"].items())
+        print(f"[train] checkpoint step {tree['step']}; max |EMA - "
+              f"parameter| {ema_gap:.3g}", flush=True)
+        if tree["step"] != n_steps or not ema_gap > 0:
+            fail("the checkpoint's step or EMA is wrong")
+
+        # the checkpoint in cli upscale
+        rng = np.random.default_rng(2)
+        src, dst = os.path.join(tmp, "lr.png"), os.path.join(tmp, "sr.png")
+        Image.fromarray(rng.integers(0, 256, (96, 128, 3), dtype=np.uint8)) \
+            .save(src)
+        rc = cli.main(["upscale", "--image", src, "--checkpoint", ck,
+                       "--out", dst])
+        with Image.open(dst) as im:
+            if rc != 0 or im.size != (512, 384):
+                fail(f"cli upscale from the train checkpoint: rc {rc}, "
+                     f"size {im.size}")
+
+        # one more step of each kind from the checkpoint: kernels vs plain
+        batch = torch.from_numpy(
+            next(iter(SyntheticPatches(cfg.data, seed=123)))).cuda()
+        pair = preprocess_batch(batch, cfg.data, augment=False)
+        gan = make_gan_step(cfg)
+
+        def restored():
+            states = {}
+            for which in ("kernel", "plain"):
+                states[which], _, at = restore_checkpoint(
+                    ck, init_state(cfg, "cuda"))
+                if at != n_steps:
+                    fail(f"restore_checkpoint gave step {at}")
+            return states
+
+        states = restored()
+        pre = make_pretrain_step(cfg)
+        w_k = pre.core(states["kernel"], pair["lr"], pair["hr"])
+        w_p = swapped(lambda: pre.core(states["plain"], pair["lr"],
+                                       pair["hr"]))
+        w_deltas = {k: rel(float(w_k[k]), float(v)) for k, v in w_p.items()}
+        w_grad, w_name = worst_grad(states["kernel"], states["plain"])
+        print("[train] warmup step, kernels vs plain dense block (bf16, "
+              f"full width): relative deltas {json.dumps(w_deltas)} "
+              f"(limits: loss {STEP_LOSS_RTOL}, grad_norm_g "
+              f"{STEP_GRAD_NORM_RTOL}); worst gradient tensor of G "
+              f"({w_name}): {w_grad:.4g} of its largest value (limit "
+              f"{STEP_WARMUP_GRAD_TOL})", flush=True)
+        if not w_deltas["loss_pixel"] <= STEP_LOSS_RTOL \
+                or not w_deltas["grad_norm_g"] <= STEP_GRAD_NORM_RTOL \
+                or not w_grad <= STEP_WARMUP_GRAD_TOL:
+            fail("the warmup step through the kernels differs from the "
+                 "plain dense block")
+        states = restored()
+        m_k = gan.core(states["kernel"], pair["lr"], pair["hr"])
+        f0 = ops.dense_block.launches
+        m_p = swapped(lambda: gan.core(states["plain"], pair["lr"],
+                                       pair["hr"]))
+        torch.cuda.synchronize()
+        if ops.dense_block.launches != f0:
+            fail("the plain step launched the kernel")
+        m_k = {k: float(v) for k, v in m_k.items()}
+        m_p = {k: float(v) for k, v in m_p.items()}
+        deltas = {k: rel(m_k[k], m_p[k]) for k in m_p}
+        grad_rel, grad_name = worst_grad(states["kernel"], states["plain"])
+        print("[train] GAN step, kernels vs plain dense block (bf16, full "
+              f"width): relative deltas {json.dumps(deltas)} (limits: "
+              f"losses {STEP_LOSS_RTOL}, grad_norm_g {STEP_GRAD_NORM_RTOL}"
+              f"); worst gradient tensor of G ({grad_name}), against its "
+              f"largest value, not held: {grad_rel:.4g}", flush=True)
+        for k, d in deltas.items():
+            limit = STEP_GRAD_NORM_RTOL if k.startswith("grad_norm") \
+                else STEP_LOSS_RTOL
+            if not d <= limit:
+                fail(f"GAN step through the kernels differs from the plain "
+                     f"dense block in {k}: {m_k[k]} vs {m_p[k]}")
+
+        # device profile of one GAN step, from the kernel state
+        gan_ms = statistics.median(
+            r["ms"] for r in records[n_warmup + 1:])
+        warm_ms = statistics.median(r["ms"] for r in records[1:n_warmup])
+        profile_device(lambda: gan.core(states["kernel"], pair["lr"],
+                                        pair["hr"]), gan_ms, "train-profile")
+        del states
+
+    # float32, small geometry: every gradient tensor of G
+    cfg32 = dataclasses.replace(
+        cfg, compute_dtype="float32",
+        generator=dataclasses.replace(gcfg, n_blocks=2,
+                                      init="torch_default"),
+        data=dataclasses.replace(cfg.data, hr_patch=48, batch_size=2))
+    gen = torch.Generator().manual_seed(7)
+    lr32 = torch.randn(2, 12, 12, 3, generator=gen).cuda()
+    hr32 = torch.randn(2, 48, 48, 3, generator=gen).cuda()
+    gan32 = make_gan_step(cfg32)
+    out = {}
+    for which in ("kernel", "plain"):
+        state = init_state(cfg32, "cuda")
+        with torch.no_grad():
+            # a freshly drawn G gives an almost constant SR image, on
+            # which D's batch statistics cancel catastrophically and
+            # amplify summation-order noise; scaled, SR varies like HR
+            state.g.conv_last.weight.mul_(30.0)
+            state.g.conv_last.bias.mul_(30.0)
+        run = (lambda: gan32.core(state, lr32, hr32))
+        metrics = run() if which == "kernel" else swapped(run)
+        out[which] = ({k: float(v) for k, v in metrics.items()},
+                      [p.grad.clone() for p in state.g.parameters()])
+    worst32 = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                  for a, b in zip(out["kernel"][1], out["plain"][1]))
+    loss32 = max(rel(out["kernel"][0][k], v)
+                 for k, v in out["plain"][0].items())
+    print(f"[train] fp32 GAN step (2 blocks, 2x48x48 HR), kernels vs plain: "
+          f"worst gradient tensor {worst32:.4g} of its largest value "
+          f"(limit {STEP_FP32_GRAD_TOL}), worst metric {loss32:.4g} "
+          f"relative", flush=True)
+    if not worst32 <= STEP_FP32_GRAD_TOL or not loss32 <= STEP_FP32_GRAD_TOL:
+        fail("the fp32 GAN step through the kernels differs from the plain "
+             "dense block")
+
+    b, hp = cfg.data.batch_size, cfg.data.hr_patch
+    mp = b * hp * hp / 1e6
+    peak = max(r["peak_bytes"] for r in records[n_warmup:])
+    res = dict(fwd_launches=fwd_launches, bwd_launches=bwd_launches,
+               fwd_per_update=want_fwd, bwd_per_update=want_bwd,
+               warmup_step_ms=warm_ms, gan_step_ms=gan_ms,
+               warmup_mp_per_s=mp / (warm_ms / 1e3),
+               gan_mp_per_s=mp / (gan_ms / 1e3),
+               first_step_ms=records[0]["ms"],
+               first_gan_step_ms=records[n_warmup]["ms"],
+               peak_memory_gb=peak / 1e9,
+               kernel_vs_plain=deltas, kernel_vs_plain_grad=grad_rel,
+               warmup_kernel_vs_plain=w_deltas,
+               warmup_kernel_vs_plain_grad=w_grad)
+    print(f"[train] {b} x {hp}x{hp} HR patches, bf16, 23 blocks: "
+          f"{warm_ms:.3f} ms per warmup step, {gan_ms:.3f} ms per GAN step "
+          f"(medians of the steps after the first of each kind), "
+          f"{res['gan_mp_per_s']:.3f} HR MP/s in GAN steps; peak memory of "
+          f"a GAN step {res['peak_memory_gb']:.3f} GB", flush=True)
+    print("[train] " + json.dumps(res), flush=True)
+    return res
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "super_resolution_tpu_torch")):
         print("chip_smoke: the super_resolution_tpu_torch package is not "
@@ -494,6 +1020,7 @@ def main() -> int:
     from super_resolution_tpu_torch import build
 
     t0 = time.perf_counter()
+    build.build_all()            # one nvcc per source, started together
     for name in build.SOURCES:
         build.load(name)
     print(f"[build] {len(build.SOURCES)} kernel source(s) built with nvcc "
@@ -502,23 +1029,43 @@ def main() -> int:
                       for n in build.SOURCES), flush=True)
 
     kern = kernel_phase()
+    kern_bwd = bwd_kernel_phase()
     model_phase()
     serve = serve_phase()
+    train = train_phase()
 
-    flag = kern["flagship"]
+    flag, bwd = kern["flagship"], kern_bwd["train"]
+    serve_launches = serve["upscale_launches"] + serve["serve_launches"]
     print(json.dumps({"kernels": [{
         "name": "dense_block",
         "route": "cuda",
         "source": "super_resolution_tpu_torch/csrc/dense_block.cu",
         "replaces": REPLACES,
-        # the user's entry points: cli upscale, then cli serve --once
-        "launches": serve["upscale_launches"] + serve["serve_launches"],
+        # the user's entry points, each counted from 0: cli upscale and
+        # cli serve --once, then cli train
+        "launches": serve_launches + train["fwd_launches"],
+        "launches_serve_path": serve_launches,
+        "launches_train_path": train["fwd_launches"],
         "max_abs_err": flag["max_abs_err"],
         "ms": flag["kernel_ms"],
         "plain_ms": flag["plain_ms"],
         "bound_ms": flag["bound_ms"],
         "bound_by": flag["bound_by"],
         "library_ms": flag["library_ms"],
+        "train_shape_ms": kern["train"]["kernel_ms"],
+    }, {
+        "name": "dense_block_bwd",
+        "route": "cuda",
+        "source": "super_resolution_tpu_torch/csrc/dense_block_bwd.cu",
+        "replaces": REPLACES_BWD,
+        "launches": train["bwd_launches"],        # cli train
+        "max_abs_err": bwd["max_abs_err"],
+        "ms": bwd["kernel_ms"],
+        "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"],
+        "library_ms": bwd["library_ms"],
+        "kernels_device_ms": bwd["kernels_device_ms"],
     }]}))
     print(smi)                       # card name, power limit
     print(json.dumps({"ok": True, "device": {

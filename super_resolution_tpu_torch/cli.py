@@ -1,6 +1,8 @@
-"""CLI of the port: the ``upscale`` and ``serve`` subcommands of the JAX
-package's CLI, with the same flags, running on the card.
+"""CLI of the port: the ``train``, ``upscale`` and ``serve`` subcommands
+of the JAX package's CLI, with the same flags, running on the card.
 
+    python -m super_resolution_tpu_torch.cli train --dataset_dir data/train \
+        --preset train_gan_dfm --checkpoint_dir ck/
     python -m super_resolution_tpu_torch.cli upscale --image frame.png \
         --checkpoint gen.pth --out sr.png
     python -m super_resolution_tpu_torch.cli serve --checkpoint gen.pth \
@@ -9,9 +11,11 @@ package's CLI, with the same flags, running on the card.
 ``--device`` (default ``cuda``) picks where the model runs; asking for
 ``cuda`` on a machine without a card raises, and ``--device cpu`` runs
 every kernel's plain version on the CPU.  Checkpoints are torch ``.pth``
-files in any of the three naming families; orbax directories are the
-JAX package's format and are refused.  ``--data_parallel`` above 1
-needs DDP, which is not ported yet.  Default tile geometry: square 384,
+files in any of the three naming families, or a checkpoint directory
+written by ``train``; orbax directories are the JAX package's format and
+are refused.  ``--data_parallel`` above 1, ``--multihost``,
+``--loader grain``, ``--profile_dir`` and ``--eval_dir`` are accepted by
+the parser and raise: they are not ported yet (ROADMAP.md).  Default tile geometry: square 384,
 no height bucket, no alignment (the H100 geometry sweep is a ROADMAP
 item).
 """
@@ -28,12 +32,18 @@ import numpy as np
 
 
 def _build_cfg(args):
-    from super_resolution_tpu_torch.config import InferConfig, preset
+    from super_resolution_tpu_torch.config import (
+        OptimConfig,
+        TrainConfig,
+        preset,
+    )
 
-    cfg = preset(args.preset) if args.preset else InferConfig()
+    cfg = preset(args.preset) if args.preset else TrainConfig()
 
     def ov(name, cur):
-        """CLI value if given, else the preset/default value."""
+        """CLI value if given, else the preset/default value: flags a
+        preset may set default to None, so an argparse default cannot
+        clobber a --preset."""
         v = getattr(args, name, None)
         return cur if v is None else v
 
@@ -46,14 +56,52 @@ def _build_cfg(args):
     )
     data = dataclasses.replace(
         cfg.data,
+        dataset_dir=ov("dataset_dir", cfg.data.dataset_dir),
+        lr_dir=ov("lr_dir", cfg.data.lr_dir),
         hr_patch=ov("hr_height", cfg.data.hr_patch),
         hr_patch_w=ov("hr_width", cfg.data.hr_patch_w),
+        batch_size=ov("batch_size", cfg.data.batch_size),
+        n_workers=ov("n_cpu", cfg.data.n_workers),
     )
+    loss = dataclasses.replace(
+        cfg.loss,
+        lambda_adv=ov("lambda_adv", cfg.loss.lambda_adv),
+        lambda_pixel=ov("lambda_pixel", cfg.loss.lambda_pixel),
+        lambda_percep=ov("lambda_percep", cfg.loss.lambda_percep),
+        perceptual_source=ov("perceptual_source",
+                             cfg.loss.perceptual_source),
+        ragan_g_two_sided=cfg.loss.ragan_g_two_sided
+        or bool(getattr(args, "ragan_two_sided", False)),
+        use_perceptual=cfg.loss.use_perceptual
+        and not getattr(args, "no_perceptual", False),
+    )
+
+    def opt_with_flags(cur: OptimConfig) -> OptimConfig:
+        """Overlay the flags on a preset's optimizer config; flags that
+        were not passed keep the preset's values."""
+        halve = getattr(args, "lr_halve_steps", None)
+        return dataclasses.replace(
+            cur, lr=ov("lr", cur.lr), b1=ov("b1", cur.b1),
+            b2=ov("b2", cur.b2),
+            lr_halve_steps=cur.lr_halve_steps if halve is None
+            else tuple(halve))
+
     return dataclasses.replace(
-        cfg, generator=gen, data=data,
+        cfg, generator=gen, data=data, loss=loss,
+        optim_g=opt_with_flags(cfg.optim_g),
+        optim_d=opt_with_flags(cfg.optim_d),
+        n_epochs=ov("n_epochs", cfg.n_epochs),
+        warmup_batches=ov("warmup_batches", cfg.warmup_batches),
+        sample_interval=ov("sample_interval", cfg.sample_interval),
+        checkpoint_interval=ov("checkpoint_interval",
+                               cfg.checkpoint_interval),
+        checkpoint_dir=ov("checkpoint_dir", cfg.checkpoint_dir),
         compute_dtype=ov("dtype", cfg.compute_dtype),
         data_parallel=ov("data_parallel", cfg.data_parallel),
-        seed=ov("seed", cfg.seed))
+        seed=ov("seed", cfg.seed),
+        vgg=dataclasses.replace(cfg.vgg, weights_path=args.vgg_weights)
+        if getattr(args, "vgg_weights", None) else cfg.vgg,
+    )
 
 
 def _load_generator(args, cfg):
@@ -65,6 +113,20 @@ def _load_generator(args, cfg):
 
     path = args.checkpoint
     if os.path.isdir(path):
+        from super_resolution_tpu_torch.checkpoint import (
+            latest_step,
+            restore_generator_params,
+        )
+
+        if latest_step(path) is not None:      # written by `train`
+            sd, _ = restore_generator_params(path,
+                                             ema_decay=cfg.ema_decay)
+            sd, gen_cfg = import_generator(sd)
+            gen_cfg = dataclasses.replace(
+                gen_cfg, conv_impl=cfg.generator.conv_impl,
+                tail_up=cfg.generator.tail_up,
+                lrelu_slope=cfg.generator.lrelu_slope)
+            return sd, dataclasses.replace(cfg, generator=gen_cfg)
         raise SystemExit(
             f"{path!r} is a directory: orbax checkpoints are the JAX "
             f"package's format; export one to .pth with "
@@ -145,9 +207,9 @@ def _add_tile_flags(p: argparse.ArgumentParser):
 
 
 def _add_common(p: argparse.ArgumentParser):
-    from super_resolution_tpu_torch.config import INFER_PRESETS
+    from super_resolution_tpu_torch.config import PRESETS
 
-    p.add_argument("--preset", choices=INFER_PRESETS, default=None)
+    p.add_argument("--preset", choices=PRESETS, default=None)
     p.add_argument("--residual_blocks", type=int, default=None,
                    help="number of RRDB blocks (default 23)")
     p.add_argument("--channels", type=int, default=None)
@@ -168,8 +230,8 @@ def _add_common(p: argparse.ArgumentParser):
                    help="DP-of-tiles over this many devices (the port "
                         "runs one device until DDP is ported)")
     p.add_argument("--vgg_weights", default=None,
-                   help="accepted for command-line compatibility; "
-                        "inference does not read it")
+                   help="npz from tools/convert_vgg.py (training's "
+                        "perceptual loss)")
     p.add_argument("--lenient_import", action="store_true",
                    help="ignore unmapped keys when importing a torch .pth")
     p.add_argument("--compile_cache_dir", default=None,
@@ -185,6 +247,62 @@ def _add_common(p: argparse.ArgumentParser):
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="super_resolution_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
+
+    t = sub.add_parser("train", help="GAN / PSNR-pretrain training")
+    _add_common(t)
+    t.add_argument("--dataset_dir", required=True)
+    t.add_argument("--lr_dir", default=None,
+                   help="paired-LR directory (files matched to "
+                        "--dataset_dir by stem); omits bicubic LR "
+                        "synthesis")
+    t.add_argument("--n_epochs", type=int, default=None)
+    t.add_argument("--steps", type=int, default=None,
+                   help="total steps override (default epochs*1000)")
+    t.add_argument("--batch_size", type=int, default=None)
+    t.add_argument("--n_cpu", type=int, default=None)
+    t.add_argument("--lr", type=float, default=None)
+    t.add_argument("--b1", type=float, default=None)
+    t.add_argument("--b2", type=float, default=None)
+    t.add_argument("--lr_halve_steps", type=int, nargs="*", default=None,
+                   help="steps at which lr halves (MultiStepLR)")
+    t.add_argument("--warmup_batches", type=int, default=None)
+    t.add_argument("--lambda_adv", type=float, default=None)
+    t.add_argument("--lambda_pixel", type=float, default=None)
+    t.add_argument("--lambda_percep", type=float, default=None)
+    t.add_argument("--no_perceptual", action="store_true")
+    t.add_argument("--perceptual_source", default=None,
+                   choices=("vgg", "d_features"),
+                   help="perceptual feature space: ImageNet VGG-19 "
+                        "(needs --vgg_weights) or discriminator feature "
+                        "matching (no external asset)")
+    t.add_argument("--ragan_two_sided", action="store_true",
+                   help="the paper's G-side RaGAN (both directions "
+                        "averaged) instead of the single-direction recipe")
+    t.add_argument("--sample_interval", type=int, default=None)
+    t.add_argument("--checkpoint_interval", type=int, default=None)
+    t.add_argument("--checkpoint_dir", default=None)
+    t.add_argument("--sample_dir", default=None)
+    t.add_argument("--log_dir", default=None)
+    t.add_argument("--resume", action="store_true")
+    t.add_argument("--init_g_from", default=None,
+                   help="warm-start G from a PSNR checkpoint (.pth or a "
+                        "checkpoint directory of `train`) into a fresh GAN "
+                        "state — the ESRGAN pretrain->GAN recipe")
+    t.add_argument("--eval_dir", default=None,
+                   help="validation dir for periodic in-loop eval (not "
+                        "ported yet)")
+    t.add_argument("--eval_interval", type=int, default=None)
+    t.add_argument("--profile_dir", default=None,
+                   help="profiler trace output dir (not ported yet)")
+    t.add_argument("--multihost", action="store_true",
+                   help="multi-host training (not ported yet)")
+    t.add_argument("--coordinator", default=None)
+    t.add_argument("--num_processes", type=int, default=None)
+    t.add_argument("--process_id", type=int, default=None)
+    t.add_argument("--loader", choices=("threads", "grain"),
+                   default="threads",
+                   help="input pipeline backend ('grain' is not ported "
+                        "yet)")
 
     u = sub.add_parser("upscale",
                        help="×4 upscale an image, or every image in a "
@@ -227,8 +345,23 @@ def main(argv=None):
     cfg = _build_cfg(args)
     if cfg.data_parallel > 1:
         raise NotImplementedError(
-            "--data_parallel > 1 needs DDP, which the port does not have "
-            "yet (ROADMAP.md Queue 1)")
+            "--data_parallel > 1 needs DDP, which is not ported yet "
+            "(ROADMAP.md Queue 1)")
+
+    if args.cmd == "train":
+        for flag, on in (("--multihost", args.multihost),
+                         ("--loader grain", args.loader == "grain"),
+                         ("--profile_dir", bool(args.profile_dir)),
+                         ("--eval_dir", bool(args.eval_dir))):
+            if on:
+                raise NotImplementedError(
+                    f"{flag} is not ported yet (ROADMAP.md)")
+        from super_resolution_tpu_torch.train import train
+
+        train(cfg, total_steps=args.steps, resume=args.resume,
+              init_g_from=args.init_g_from, log_dir=args.log_dir,
+              sample_dir=args.sample_dir, device=args.device)
+        return 0
 
     import torch
 

@@ -1,12 +1,10 @@
-"""Configuration of the port's inference path.
+"""Configuration of the port.
 
-:class:`GeneratorConfig` and :class:`DataConfig` are the JAX package's
-(``super_resolution_tpu/config.py``) field for field, so configs of the
-two packages compare equal.  :class:`InferConfig` holds the fields of
-the JAX ``TrainConfig`` that inference reads (the generator, the data
-normalisation, ``compute_dtype``, ``data_parallel``, ``seed``); the
-training fields come with the training slice.  ``preset`` knows the two
-inference presets of the JAX package.
+The dataclasses are the JAX package's (``super_resolution_tpu/
+config.py``) field for field, so configs of the two packages compare
+equal, and ``preset`` knows its presets by name.  ``train_gan_dp8``
+(``data_parallel=8``) needs DDP, which is not ported yet: asking for it
+raises.
 
 ``conv_impl`` stays a field so configs compare equal, but the port
 takes only ``"auto"``: every conv dispatches by the device of the
@@ -17,6 +15,7 @@ the CPU).  There is no backend fallback to resolve.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 IMAGENET_MEAN: Tuple[float, float, float] = (0.485, 0.456, 0.406)
@@ -63,9 +62,66 @@ class GeneratorConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DiscriminatorConfig:
+    """VGG-style patch discriminator: conv pairs at widths
+    (64, 128, 256, 512), stride 1 then stride 2, BatchNorm except on the
+    very first conv, LeakyReLU 0.2, and a 1-channel conv head producing
+    an (H/16, W/16) logit map.  4,693,697 params at default width."""
+
+    channels: int = 3
+    base_filters: int = 64
+    n_scales: int = 4            # number of width-doubling stages
+    lrelu_slope: float = 0.2
+    bn_momentum: float = 0.9     # flax convention: 1 - torch momentum (0.1)
+    bn_eps: float = 1e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class VGGConfig:
+    """Frozen VGG-19 trunk truncated at conv5_4 pre-activation
+    (torchvision ``vgg19.features[:35]``).  ``weights_path`` is an npz
+    from ``tools/convert_vgg.py``; None means random init."""
+
+    weights_path: Optional[str] = None
+    # conv widths of VGG-19 cfg E, 'M' marking 2x2 maxpools; truncated
+    # after conv5_4 (no ReLU, no final pool)
+    arch: Tuple = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
+                   512, 512, 512, 512, "M", 512, 512, 512, 512)
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """ESRGAN loss weights: total G loss = lambda_percep * perceptual +
+    lambda_adv * RaGAN + lambda_pixel * L1."""
+
+    lambda_adv: float = 5e-3
+    lambda_pixel: float = 1e-2
+    use_perceptual: bool = True
+    # "vgg" (VGG-19 conv5_4 features) or "d_features" (discriminator
+    # feature matching, the VGG-free substitute)
+    perceptual_source: str = "vgg"
+    lambda_percep: float = 1.0
+    # False = single fake-vs-E[real] direction; True = both directions
+    # averaged (the paper's recipe)
+    ragan_g_two_sided: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """Adam settings; ``lr_halve_steps`` is the MultiStepLR-style
+    schedule (lr x0.5 at the listed steps), empty = constant lr."""
+
+    lr: float = 2e-4
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    lr_halve_steps: Tuple[int, ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """Patch pipeline settings (only the normalisation is read by the
-    inference path; the rest keeps the JAX package's fields)."""
+    """Patch pipeline settings: 48x48 LR -> 192x192 HR patches, bicubic
+    /4 synthesis, ImageNet normalisation, flip/rotate augmentation."""
 
     dataset_dir: str = "data/train"
     lr_dir: Optional[str] = None
@@ -94,28 +150,77 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
-class InferConfig:
-    """What inference reads of the JAX package's ``TrainConfig``."""
+class TrainConfig:
+    """Top-level config: the union of the train CLI's flags plus the
+    compute dtype.  Inference reads the generator, the data
+    normalisation, ``compute_dtype``, ``data_parallel`` and ``seed``."""
 
     generator: GeneratorConfig = GeneratorConfig()
+    discriminator: DiscriminatorConfig = DiscriminatorConfig()
+    vgg: VGGConfig = VGGConfig()
+    loss: LossConfig = LossConfig()
+    optim_g: OptimConfig = OptimConfig()
+    optim_d: OptimConfig = OptimConfig()
     data: DataConfig = DataConfig()
-    compute_dtype: str = "bfloat16"   # conv compute dtype; params stay fp32
-    data_parallel: int = 1
+
+    n_epochs: int = 200
+    steps_per_epoch: int = 1000
+    warmup_batches: int = 500    # L1-only pretrain steps before the GAN
+    sample_interval: int = 100
+    checkpoint_interval: int = 1000
+    checkpoint_dir: str = "checkpoints"
     seed: int = 0
 
+    # True: D's running stats update on all four forwards of an iteration
+    # (hr, sr, hr, sr detached), the reference family's bookkeeping;
+    # False: only on the D step's two forwards.
+    bn_track_g_step: bool = False
+    # Compute the D(hr) forward once per iteration (train/steps.py
+    # _dedup_gan_step); ignored when bn_track_g_step is set.
+    dedup_d_hr: bool = False
+    # EMA of G's params (BasicSR 'params_ema'); 0.0 disables.
+    ema_decay: float = 0.999
+    eval_use_ema: bool = True
 
-INFER_PRESETS = ("infer_single", "infer_tiled")
+    compute_dtype: str = "bfloat16"   # conv compute dtype; params stay fp32
+    data_parallel: int = 1
+    donate_buffers: bool = True       # kept so configs compare equal
 
 
-def preset(name: str) -> InferConfig:
-    """The JAX package's inference presets: single-image fp32 and tiled
-    large-frame bf16."""
+def ema_maturity_steps(decay: float) -> int:
+    """Steps before the EMA is a release-grade artifact: 5 time constants
+    of e <- d*e + (1-d)*p, i.e. 5/(1-d) (5000 at the default 0.999).
+    Below it a from-scratch EMA is still dominated by the random init."""
+    return int(math.ceil(5.0 / max(1e-9, 1.0 - decay)))
+
+
+PRESETS = ("infer_single", "pretrain_psnr", "train_gan", "train_gan_dfm",
+           "infer_tiled", "train_gan_dp8")
+
+
+def preset(name: str) -> TrainConfig:
+    """The JAX package's presets by name."""
+    if name == "train_gan_dp8":
+        raise NotImplementedError(
+            "preset 'train_gan_dp8' (data_parallel=8) is not ported yet "
+            "(ROADMAP.md): the port trains on one device until DDP lands")
     presets = {
-        "infer_single": InferConfig(compute_dtype="float32"),
-        "infer_tiled": InferConfig(compute_dtype="bfloat16"),
+        "infer_single": TrainConfig(compute_dtype="float32"),
+        "pretrain_psnr": TrainConfig(
+            loss=LossConfig(lambda_adv=0.0, use_perceptual=False),
+            warmup_batches=10**9,
+            optim_g=OptimConfig(lr=2e-4),
+        ),
+        "train_gan": TrainConfig(),
+        # the VGG-free recipe: D-feature matching anchors harder and
+        # slows D
+        "train_gan_dfm": TrainConfig(
+            loss=LossConfig(perceptual_source="d_features",
+                            lambda_percep=1.0, lambda_pixel=0.1),
+            optim_d=OptimConfig(lr=3e-5),
+        ),
+        "infer_tiled": TrainConfig(compute_dtype="bfloat16"),
     }
     if name not in presets:
-        raise KeyError(f"unknown preset {name!r}; the port has "
-                       f"{sorted(presets)} (training presets come with the "
-                       f"training slice, ROADMAP.md)")
+        raise KeyError(f"unknown preset {name!r}; have {sorted(PRESETS)}")
     return presets[name]

@@ -14,8 +14,12 @@ package's ``import_torch.py``):
   conv3.{0,2}`` (LeakyReLU slope 0.01)
 
 :func:`state_dict_from_flax` carries the JAX package's generator tree
-across (HWIO → OIHW), so both packages can compute with one set of
-weights.  Orbax checkpoint directories are the JAX package's format and
+across (HWIO → OIHW), :func:`discriminator_state_dict_from_flax` and
+:func:`vgg_state_dict_from_flax` the discriminator (with its BatchNorm
+statistics) and the VGG trunk, and :func:`adam_state_from_optax` an
+optax Adam state, so both packages can compute — and take a training
+step — from one set of weights and one optimizer state.  All take numpy
+arrays.  Orbax checkpoint directories are the JAX package's format and
 are not read here.
 """
 
@@ -174,18 +178,26 @@ _FLAX_TAIL = {"conv_first": "conv_first", "trunk_conv": "conv_body",
               "hr_conv": "conv_hr", "conv_last": "conv_last"}
 
 
+def _vector(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, np.float32))
+
+
+def _conv_from_flax(node: dict, name: str,
+                    out: Dict[str, torch.Tensor]) -> None:
+    """One flax conv node (HWIO kernel, bias) → ``name.weight`` (OIHW) and
+    ``name.bias``, float32."""
+    out[f"{name}.weight"] = torch.from_numpy(
+        np.ascontiguousarray(np.asarray(node["kernel"], np.float32)
+                             .transpose(3, 2, 0, 1)))
+    out[f"{name}.bias"] = _vector(node["bias"])
+
+
 def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
     """The JAX package's generator params (``{"conv_first": {"kernel",
     "bias"}, "block{b}": {"dense{k}": {"conv{j}": …}}, "trunk_conv",
     "upconv1/2", "hr_conv", "conv_last"}``, numpy or jax arrays) → the
     port's state dict, kernels HWIO → OIHW, float32."""
-    def conv(node, name, out):
-        out[f"{name}.weight"] = torch.from_numpy(
-            np.ascontiguousarray(np.asarray(node["kernel"], np.float32)
-                                 .transpose(3, 2, 0, 1)))
-        out[f"{name}.bias"] = torch.from_numpy(
-            np.array(node["bias"], np.float32))
-
+    conv = _conv_from_flax
     sd: Dict[str, torch.Tensor] = {}
     n_blocks = sum(1 for k in params if str(k).startswith("block"))
     for flax_name, name in _FLAX_TAIL.items():
@@ -198,3 +210,51 @@ def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
                 conv(blk[f"dense{k}"][f"conv{j}"], f"body.{b}.rdb{k}.conv{j}",
                      sd)
     return sd
+
+
+def discriminator_state_dict_from_flax(params: dict, batch_stats: dict
+                                       ) -> Dict[str, torch.Tensor]:
+    """The JAX package's discriminator params (``conv{i}_{j}``, ``head``:
+    kernel, bias; ``bn{i}_{j}``: scale, bias) and ``batch_stats``
+    (``bn{i}_{j}``: mean, var) → the port's ``Discriminator`` state
+    dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, node in params.items():
+        if "kernel" in node:
+            _conv_from_flax(node, name, sd)
+        else:
+            sd[f"{name}.weight"] = _vector(node["scale"])
+            sd[f"{name}.bias"] = _vector(node["bias"])
+    for name, node in batch_stats.items():
+        sd[f"{name}.running_mean"] = _vector(node["mean"])
+        sd[f"{name}.running_var"] = _vector(node["var"])
+    return sd
+
+
+def vgg_state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
+    """The JAX package's VGG trunk params (``conv{i}``: kernel, bias) →
+    the port's ``VGGFeatures`` state dict."""
+    sd: Dict[str, torch.Tensor] = {}
+    for name, node in params.items():
+        _conv_from_flax(node, name, sd)
+    return sd
+
+
+def adam_state_from_optax(opt: torch.optim.Adam,
+                          mu: Dict[str, torch.Tensor],
+                          nu: Dict[str, torch.Tensor], count: int,
+                          names) -> None:
+    """Put an optax Adam state into ``opt``: ``mu`` and ``nu`` are the
+    first and second moments carried across as state dicts (the
+    ``*_from_flax`` functions convert the moment trees like the
+    parameters), ``count`` the number of updates done, ``names`` the
+    parameter names in the order of the optimizer's parameters."""
+    it = iter(names)
+    for group in opt.param_groups:
+        group["n_updates"] = int(count)
+        for p in group["params"]:
+            name = next(it)
+            opt.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": mu[name].to(p.device, p.dtype).clone(),
+                "exp_avg_sq": nu[name].to(p.device, p.dtype).clone()}

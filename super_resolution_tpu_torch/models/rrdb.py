@@ -17,7 +17,11 @@ transposes once at each end and runs NCHW in between.
 Parameters are float32.  :meth:`RRDBNet.prepare` casts them to the
 compute dtype and packs the dense-block weights into the kernel's layout
 once, after the weights are loaded; run it again after changing them.
-In float32 every conv runs with TF32 off (the JAX package pins
+That cached path is detached and serves inference.  For training,
+``prepare(dtype, live=True)`` keeps no cache: every forward casts and
+packs the live parameters inside the graph and runs the dense blocks
+through :func:`ops.dense_block.dense_block_train`, so gradients reach
+the float32 ``weight`` and ``bias``.  In float32 every conv runs with TF32 off (the JAX package pins
 ``Precision.HIGHEST`` for float32).
 """
 
@@ -35,6 +39,7 @@ from super_resolution_tpu_torch.models.initializers import conv_init_
 from super_resolution_tpu_torch.ops.dense_block import (
     N_CONVS,
     dense_block,
+    dense_block_train,
     pack_weight,
 )
 from super_resolution_tpu_torch.ops.shuffle import (
@@ -50,13 +55,17 @@ class Conv3x3(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3))
         self.bias = nn.Parameter(torch.empty(cout))
-        self._w = self._b = None
+        self._w = self._b = self._dtype = None
 
-    def prepare(self, dtype: torch.dtype) -> None:
-        self._w = self.weight.detach().to(dtype)
-        self._b = self.bias.detach().to(dtype)
+    def prepare(self, dtype: torch.dtype, live: bool = False) -> None:
+        self._dtype = dtype
+        self._w = None if live else self.weight.detach().to(dtype)
+        self._b = None if live else self.bias.detach().to(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._w is None:     # live: cast inside the graph
+            return F.conv2d(x, self.weight.to(self._dtype),
+                            self.bias.to(self._dtype), padding=1)
         return F.conv2d(x, self._w, self._b, padding=1)
 
 
@@ -76,22 +85,31 @@ class DenseBlock(nn.Module):
             width = cfg.filters if j == N_CONVS else cfg.growth
             setattr(self, f"conv{j}", Conv3x3(cin, width))
             cin += width
-        self._w = self._b = None
+        self._w = self._b = self._dtype = None
 
     def convs(self):
         return [getattr(self, f"conv{j}") for j in range(1, N_CONVS + 1)]
 
-    def prepare(self, dtype: torch.dtype) -> None:
+    def prepare(self, dtype: torch.dtype, live: bool = False) -> None:
         """Pack the weights into the kernel's layout in ``dtype`` and
-        keep the biases float32, as the kernel takes them."""
-        self._w = [pack_weight(c.weight.detach()).to(dtype)
-                   for c in self.convs()]
-        self._b = [c.bias.detach().float().contiguous()
-                   for c in self.convs()]
+        keep the biases float32, as the kernel takes them; ``live``
+        leaves that to every forward."""
+        self._dtype = dtype
+        self._w = self._b = None
+        if not live:
+            self._w = [pack_weight(c.weight.detach()).to(dtype)
+                       for c in self.convs()]
+            self._b = [c.bias.detach().float().contiguous()
+                       for c in self.convs()]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return dense_block(x, self._w, self._b, res_scale=self.cfg.res_scale,
-                           slope=self.cfg.lrelu_slope)
+        kw = dict(res_scale=self.cfg.res_scale, slope=self.cfg.lrelu_slope)
+        if self._w is None:     # live: cast and pack inside the graph
+            return dense_block_train(
+                x, [pack_weight(c.weight).to(self._dtype)
+                    for c in self.convs()],
+                [c.bias for c in self.convs()], **kw)
+        return dense_block(x, self._w, self._b, **kw)
 
 
 class RRDB(nn.Module):
@@ -142,13 +160,14 @@ class RRDBNet(nn.Module):
                 conv_init_(cfg.init, m.weight, m.bias, generator)
         self._dtype = self._device = None
 
-    def prepare(self, dtype: torch.dtype) -> "RRDBNet":
+    def prepare(self, dtype: torch.dtype, live: bool = False) -> "RRDBNet":
         """Cast to the compute dtype and pack the kernel's weights, on the
         parameters' device.  Call after loading weights or moving the
-        model; returns self."""
+        model; returns self.  ``live=True`` is the training mode: no
+        cache, the parameters are cast and packed inside the graph."""
         for m in self.modules():
             if isinstance(m, (Conv3x3, DenseBlock)):
-                m.prepare(dtype)
+                m.prepare(dtype, live)
         self._dtype = dtype
         self._device = self.conv_first.weight.device
         return self

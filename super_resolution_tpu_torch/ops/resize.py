@@ -60,3 +60,13 @@ def bicubic_resize(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     return y[0] if squeeze else y
+
+
+def bicubic_downsample(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """÷factor antialiased bicubic downsample of NHWC (or HWC) ``x``: the
+    LR synthesis of training."""
+    h, w = x.shape[-3], x.shape[-2]
+    if h % factor or w % factor:
+        raise ValueError(f"shape {tuple(x.shape)} does not divide by "
+                         f"{factor}")
+    return bicubic_resize(x, h // factor, w // factor)

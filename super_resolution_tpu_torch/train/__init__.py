@@ -1,3 +1,8 @@
-"""Steps of the port (inference only in this slice)."""
+"""Training of the port: state, steps and the loop."""
 
-from super_resolution_tpu_torch.train.steps import make_infer_fn  # noqa: F401
+from super_resolution_tpu_torch.train.loop import train  # noqa: F401
+from super_resolution_tpu_torch.train.steps import (  # noqa: F401
+    make_gan_step,
+    make_infer_fn,
+    make_pretrain_step,
+)

@@ -1,6 +1,21 @@
-"""The inference step (the counterpart of the JAX package's
-``train/steps.py:make_infer_fn``).  The training steps come with the
-training slice."""
+"""Train steps (the JAX package's ``train/steps.py``): the L1 warmup
+pretrain step, the alternating G/D GAN step and the inference forward.
+
+- The warmup branch is host-side control flow: the loop picks
+  :func:`make_pretrain_step` or :func:`make_gan_step` by step count.
+- One GAN step computes G's gradients, then D's on the detached SR
+  (recomputed forwards, as the reference does), then applies both Adam
+  updates and the EMA: every gradient is taken before any parameter
+  moves, which is what the JAX step's pure function does.
+- D's BatchNorm running statistics update on the D step's two forwards
+  (hr, then detached sr); ``cfg.bn_track_g_step`` also updates them on
+  the G step's two, in the reference's order (hr, sr, hr, detached sr).
+- Each step is ``step(state, uint8 batch) -> metrics`` and mutates the
+  state in place; ``step.core(state, lr, hr)`` is the same step from an
+  already normalised pair.  Metrics are 0-dim tensors on the device (no
+  synchronisation here).  After a step every parameter's ``.grad`` holds
+  the gradient that was applied.
+"""
 
 from __future__ import annotations
 
@@ -8,21 +23,161 @@ from typing import Callable, Dict
 
 import torch
 
-from super_resolution_tpu_torch.config import InferConfig
-from super_resolution_tpu_torch.device import resolve_device
+from super_resolution_tpu_torch.config import TrainConfig
+from super_resolution_tpu_torch.data.augment import (
+    denormalize,
+    preprocess_batch,
+)
+from super_resolution_tpu_torch.device import no_tf32, resolve_device
+from super_resolution_tpu_torch.losses import (
+    feature_matching_loss,
+    l1_loss,
+    perceptual_loss,
+    psnr,
+    ragan_discriminator_loss,
+    ragan_generator_loss,
+    ragan_generator_loss_two_sided,
+)
 from super_resolution_tpu_torch.models.rrdb import RRDBNet
+from super_resolution_tpu_torch.train.state import (
+    GANTrainState,
+    apply_update,
+    compute_dtype,
+    ema_update,
+    lr_schedule,
+)
 
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+Metrics = Dict[str, torch.Tensor]
+StepFn = Callable[[GANTrainState, torch.Tensor], Metrics]
 
 
-def compute_dtype(cfg: InferConfig) -> torch.dtype:
-    if cfg.compute_dtype not in _DTYPES:
-        raise ValueError(f"compute_dtype must be one of {sorted(_DTYPES)}, "
-                         f"got {cfg.compute_dtype!r}")
-    return _DTYPES[cfg.compute_dtype]
+def _psnr01(cfg: TrainConfig, sr: torch.Tensor, hr: torch.Tensor):
+    """PSNR in [0, 1] image space (denormalised and clipped), so the
+    training log compares with eval PSNR."""
+    mean, std = cfg.data.normalize_mean, cfg.data.normalize_std
+    sr01 = denormalize(sr, mean, std).clamp(0.0, 1.0)
+    return psnr(sr01, denormalize(hr, mean, std))
 
 
-def make_infer_fn(cfg: InferConfig, state_dict: Dict[str, torch.Tensor],
+def global_norm(grads) -> torch.Tensor:
+    return torch.linalg.vector_norm(
+        torch.stack(torch._foreach_norm(list(grads))))
+
+
+def _with_prep(cfg: TrainConfig, core) -> StepFn:
+    def full_f32(state: GANTrainState, lr, hr) -> Metrics:
+        # float32 convolutions stay float32 in the backward too (the
+        # models switch TF32 off only around their forwards)
+        with no_tf32():
+            return core(state, lr, hr)
+
+    def step(state: GANTrainState, batch_uint8) -> Metrics:
+        batch = preprocess_batch(batch_uint8, cfg.data, state.aug_rng)
+        return full_f32(state, batch["lr"], batch["hr"])
+
+    step.core = full_f32
+    return step
+
+
+def make_pretrain_step(cfg: TrainConfig) -> StepFn:
+    """PSNR-only L1 pretraining of G (the warmup branch)."""
+    sched_g = lr_schedule(cfg.optim_g)
+
+    def core(state: GANTrainState, lr, hr) -> Metrics:
+        g_params = list(state.g.parameters())
+        sr = state.g(lr)
+        pix = l1_loss(sr, hr)
+        grads = torch.autograd.grad(pix, g_params)
+        apply_update(state.g_opt, sched_g, grads)
+        ema_update(cfg, state.g_ema, state.g)
+        state.step += 1
+        return {"loss_pixel": pix.detach(),
+                "psnr": _psnr01(cfg, sr.detach(), hr),
+                "grad_norm_g": global_norm(grads)}
+
+    return _with_prep(cfg, core)
+
+
+def make_gan_step(cfg: TrainConfig) -> StepFn:
+    """Full ESRGAN alternating G/D step.  ``cfg.dedup_d_hr`` (without
+    ``bn_track_g_step``) computes the D(hr) forward once instead of
+    twice: its value and feature maps feed the G loss, its gradient the
+    D update — the same updates from three discriminator forwards."""
+    lcfg = cfg.loss
+    sched_g, sched_d = lr_schedule(cfg.optim_g), lr_schedule(cfg.optim_d)
+    dfm = lcfg.use_perceptual and lcfg.perceptual_source == "d_features"
+    dedup = cfg.dedup_d_hr and not cfg.bn_track_g_step
+    g_adv_fn = (ragan_generator_loss_two_sided if lcfg.ragan_g_two_sided
+                else ragan_generator_loss)
+
+    def g_loss(state, sr, hr, pr, fr, track):
+        """G's losses as a function of sr; pr, fr are D(hr)'s logits and
+        features, detached."""
+        pix = l1_loss(sr, hr)
+        pf, ff = state.d(sr, train=True, return_features=True,
+                         update_stats=track)
+        adv = g_adv_fn(pr, pf)
+        parts = {"loss_pixel": pix, "loss_adv": adv}
+        total = lcfg.lambda_adv * adv + lcfg.lambda_pixel * pix
+        if state.vgg is not None:
+            parts["loss_percep"] = perceptual_loss(state.vgg, sr, hr)
+        elif dfm:
+            parts["loss_percep"] = feature_matching_loss(ff, fr)
+        if "loss_percep" in parts:
+            total = total + lcfg.lambda_percep * parts["loss_percep"]
+        parts["loss_g"] = total
+        return total, parts
+
+    def core(state: GANTrainState, lr, hr) -> Metrics:
+        g_params = list(state.g.parameters())
+        d_params = list(state.d.parameters())
+        track = cfg.bn_track_g_step
+        sr = state.g(lr)
+        sr_detached = sr.detach()
+
+        if dedup:
+            # D's gradients first, from the parameters and statistics the
+            # reference's D step reads; its D(hr) forward also gives the
+            # G loss its real logits and features
+            pr, fr = state.d(hr, train=True, return_features=True)
+            pf_bar = state.d(sr_detached, train=True)
+            d_loss = ragan_discriminator_loss(pr, pf_bar)
+            d_grads = torch.autograd.grad(d_loss, d_params)
+            sr_in = sr_detached.clone().requires_grad_(True)
+            total, parts = g_loss(state, sr_in, hr, pr.detach(),
+                                  [f.detach() for f in fr], False)
+            (dsr,) = torch.autograd.grad(total, sr_in)
+            g_grads = torch.autograd.grad(sr, g_params, dsr)
+        else:
+            # G's gradients: nothing of D(hr) carries a gradient to G
+            with torch.no_grad():
+                pr, fr = state.d(hr, train=True, return_features=True,
+                                 update_stats=track)
+            total, parts = g_loss(state, sr, hr, pr, fr, track)
+            g_grads = torch.autograd.grad(total, g_params)
+            # D's gradients on recomputed forwards, SR detached
+            pr = state.d(hr, train=True)
+            pf_bar = state.d(sr_detached, train=True)
+            d_loss = ragan_discriminator_loss(pr, pf_bar)
+            d_grads = torch.autograd.grad(d_loss, d_params)
+
+        apply_update(state.g_opt, sched_g, g_grads)
+        apply_update(state.d_opt, sched_d, d_grads)
+        ema_update(cfg, state.g_ema, state.g)
+        state.step += 1
+        metrics = {k: v.detach() for k, v in parts.items()}
+        metrics.update({
+            "loss_d": d_loss.detach(),
+            "psnr": _psnr01(cfg, sr_detached, hr),
+            "grad_norm_g": global_norm(g_grads),
+            "grad_norm_d": global_norm(d_grads),
+        })
+        return metrics
+
+    return _with_prep(cfg, core)
+
+
+def make_infer_fn(cfg: TrainConfig, state_dict: Dict[str, torch.Tensor],
                   device: str | torch.device = "cuda"
                   ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Normalised NHWC LR → normalised NHWC SR forward of the generator

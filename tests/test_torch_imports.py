@@ -43,10 +43,21 @@ def test_port_has_the_files_it_should():
                  "super_resolution_tpu_torch/models/rrdb.py",
                  "super_resolution_tpu_torch/ops/dense_block.py",
                  "super_resolution_tpu_torch/parallel/tiling.py",
-                 "super_resolution_tpu_torch/import_torch.py"):
+                 "super_resolution_tpu_torch/import_torch.py",
+                 "super_resolution_tpu_torch/checkpoint.py",
+                 "super_resolution_tpu_torch/losses.py",
+                 "super_resolution_tpu_torch/metrics.py",
+                 "super_resolution_tpu_torch/models/discriminator.py",
+                 "super_resolution_tpu_torch/models/vgg.py",
+                 "super_resolution_tpu_torch/data/pipeline.py",
+                 "super_resolution_tpu_torch/train/state.py",
+                 "super_resolution_tpu_torch/train/steps.py",
+                 "super_resolution_tpu_torch/train/loop.py"):
         assert want in rel
-    assert os.path.isfile(os.path.join(
-        ROOT, "super_resolution_tpu_torch", "csrc", "dense_block.cu"))
+    for source in ("dense_block.cu", "dense_block_bwd.cu",
+                   "conv3x3_tile.cuh"):
+        assert os.path.isfile(os.path.join(
+            ROOT, "super_resolution_tpu_torch", "csrc", source))
 
 
 @pytest.mark.parametrize("path", _port_files(),
