@@ -43,7 +43,26 @@ and prints no result line:
    tensor held, and a float32 GAN step at a small geometry per gradient
    tensor; ms per step, HR MP/s, the device's idle share and
    top operations from ``torch.profiler``, peak memory.
-6. the ``kernels`` JSON line, the card's name and power limit as
+6. kernel-conv3x3: the single-conv kernel against its plain version at
+   the flagship tail's shapes (8 x 64 x 128^2, 256^2, 512^2 -> 64), at
+   conv_first (8, 128, 128, 3) -> 64 and conv_last (8, 512, 512, 64) ->
+   3, at the pixel-shuffle upconv (-> 256) and at an odd fp32 shape;
+   max |err|, ms in turns (library: one cuDNN conv in bf16), the bound
+   and the roofline share, and at 128^2 the cost of conv3x3_cf's one
+   conversion of a contiguous NCHW input.
+7. kernel-fused: the NHWC dense-block entry against its plain version at
+   (8, 128, 128, 64) bf16 and an odd fp32 shape, the same fields.
+8. impls: the flagship forward under conv_impl pallas_cf_tail, pallas
+   and pallas_fused: launches of one forward against their formulas
+   (345 dense + 4 tail; 351 single convs; 345 NHWC dense), kernel vs
+   plain PSNR floor, ms per batch and MP/s, the device profile; then
+   ``cli upscale --conv_impl X`` of the serve phase's frame: launches
+   per tile batch, alpha kept, PSNR against the default impl's frame.
+9. train-tail: ``cli train --preset train_gan_dfm --conv_impl
+   pallas_cf_tail``, two warmup and two GAN steps at full width: the
+   dense-block and tail launches of every generator update, finite
+   metrics.
+10. the ``kernels`` JSON line, the card's name and power limit as
    nvidia-smi prints them, then the ``ok`` JSON line last.
 
 It needs a CUDA card and the repository around it; without either it
@@ -118,6 +137,23 @@ STEP_WARMUP_GRAD_TOL = 5e-2
 # the same at a small float32 geometry, per gradient tensor, against
 # the tensor's largest value: summation order only
 STEP_FP32_GRAD_TOL = 1e-4
+REPLACES_CONV = ("super_resolution_tpu/ops/pallas/conv_cf.py:67 "
+                 "conv3x3_cf_fwd; super_resolution_tpu/ops/pallas/"
+                 "packed_conv.py:72 packed_conv3x3")
+REPLACES_NHWC = ("super_resolution_tpu/ops/pallas/dense_block.py:129 "
+                 "fused_dense_block")
+# the single-conv kernel vs plain, elementwise: both round the same f32
+# sum once, so bf16 one ULP (another summation order can flip the
+# rounding); fp32 the summation order only
+CONV_TOL = {"bfloat16": (2.0 ** -8, 2.0 ** -7), "float32": (2e-5, 1e-5)}
+# cli upscale of the serve frame under another conv impl against the
+# default impl's frame, uint8 PSNR.  The impls compute one function but
+# round in other places in bf16 (pallas: every conv rounded, LeakyReLU and
+# both residuals in bf16; pallas_cf_tail: the tail rounded once with an
+# f32 bias), which moves a frame by a few LSB (52-56 dB, at most 7 LSB,
+# on an NVIDIA H100 80GB HBM3, 700 W); a fault at a tile, a channel or a
+# stride moves whole regions of the frame, far below the floor.
+CLI_IMPL_PSNR_FLOOR_DB = 35.0
 
 
 def fail(msg: str) -> None:
@@ -235,16 +271,9 @@ def kernel_phase():
             worst = (diff - rtol * ref.float().abs()).max().item()
             max_err = diff.max().item()
             ok = bool(torch.isfinite(y.float()).all()) and worst <= atol
-            iters = 20 if h * w * b >= 1 << 16 else 50
-            for fn in (plain, kernel, library):
-                fn()
-            times = {"plain": [], "kernel": [], "library": []}
-            for label in ("plain", "kernel", "library", "library",
-                          "kernel", "plain"):
-                fn = {"plain": plain, "kernel": kernel,
-                      "library": library}[label]
-                times[label].append(time_ms(fn, iters))
-        ms = {k: sum(v) / len(v) for k, v in times.items()}
+            ms = turns({"plain": plain, "kernel": kernel,
+                        "library": library},
+                       20 if h * w * b >= 1 << 16 else 50)
         bound_ms, bound_by, flops, nbytes = block_bound(shape, growth,
                                                         dtype_name)
         results[name] = dict(
@@ -368,19 +397,12 @@ def bwd_kernel_phase():
                 return torch.autograd.grad(y_lib, leaves, g,
                                            retain_graph=True)
 
-            fns = {"plain": plain, "kernel": kernel, "library": library}
-            iters = 20
             with torch.no_grad():
-                for fn in fns.values():
-                    fn()
-                times = {k: [] for k in fns}
-                for label in ("plain", "kernel", "library", "library",
-                              "kernel", "plain"):
-                    times[label].append(time_ms(fns[label], iters))
+                ms = turns({"plain": plain, "kernel": kernel,
+                            "library": library}, 20)
             # the wrapper's time above includes its eager glue and is
             # bound by the host at these sizes; the kernels alone:
             dev_ms = own_device_ms(kernel)
-        ms = {k: sum(v) / len(v) for k, v in times.items()}
         bound_ms, bound_by, flops, nbytes = bwd_bound(shape, growth,
                                                       dtype_name)
         results[name] = dict(
@@ -413,7 +435,6 @@ def model_phase():
     from super_resolution_tpu_torch.ops.dense_block import (
         LAUNCHES_PER_BLOCK,
         dense_block,
-        dense_block_plain,
     )
     from super_resolution_tpu_torch.train.steps import make_infer_fn
 
@@ -441,15 +462,8 @@ def model_phase():
             not bool(torch.isfinite(out).all()):
         fail(f"model output {tuple(out.shape)} is not finite (8,512,512,3)")
 
-    def through_plain(fn, arg):
-        orig = rrdb.dense_block
-        rrdb.dense_block = dense_block_plain
-        try:
-            return fn(arg)
-        finally:
-            rrdb.dense_block = orig
-
-    ref = through_plain(infer, x)
+    with PlainKernels():
+        ref = infer(x)
     rng_ = (ref.max() - ref.min()).item()
     mse = ((out - ref) ** 2).mean().item()
     psnr = 10 * math.log10(rng_ ** 2 / mse) if mse > 0 else float("inf")
@@ -463,7 +477,8 @@ def model_phase():
     infer32 = make_infer_fn(TrainConfig(compute_dtype="float32"), sd, "cuda")
     x32 = x[:2, :64, :64].contiguous()
     out32 = infer32(x32)
-    ref32 = through_plain(infer32, x32)
+    with PlainKernels():
+        ref32 = infer32(x32)
     atol, rtol = FP32_MODEL_TOL
     err32 = (out32 - ref32).abs()
     worst = (err32 - rtol * ref32.abs()).max().item()
@@ -601,7 +616,6 @@ def serve_phase():
     from super_resolution_tpu_torch.ops.dense_block import (
         LAUNCHES_PER_BLOCK,
         dense_block,
-        dense_block_plain,
     )
     from super_resolution_tpu_torch.parallel.tiling import plan_tiles
 
@@ -628,6 +642,7 @@ def serve_phase():
         pth = os.path.join(tmp, "g.pth")
         torch.save(rrdb.RRDBNet(GeneratorConfig(init=SEED_INIT),
                            torch.Generator().manual_seed(1)).state_dict(), pth)
+        sd_serve = torch.load(pth, weights_only=True)
         watch, out_dir = os.path.join(tmp, "in"), os.path.join(tmp, "out")
         os.makedirs(watch)
         frames = {"a": frame(520, 820), "b": frame(300, 400)}
@@ -676,9 +691,7 @@ def serve_phase():
         # the same frames through the plain dense block: the kernel at
         # the CLI's tile batches and dtype, held to CLI_PLAIN_MAX_LSB
         plain_delta = {}
-        orig = rrdb.dense_block
-        rrdb.dense_block = dense_block_plain
-        try:
+        with PlainKernels():
             for k, got in (("a", sr), ("b", sb)):
                 ref_path = os.path.join(tmp, f"{k}_plain.png")
                 rc = cli.main(["upscale", "--image",
@@ -691,8 +704,6 @@ def serve_phase():
                 plain_delta[k] = dict(max_lsb=int(d.max()),
                                       mean_lsb=float(d.mean()),
                                       share_differing=float((d > 0).mean()))
-        finally:
-            rrdb.dense_block = orig
     print("[serve] uint8 delta, kernel vs plain dense block (limits: max "
           f"{CLI_PLAIN_MAX_LSB} LSB, mean {CLI_PLAIN_MEAN_LSB} LSB): "
           + json.dumps(plain_delta), flush=True)
@@ -713,7 +724,69 @@ def serve_phase():
                serve_s=serve_s, serve_launches=serve_launches,
                second_run_frames=n_second, plain_delta=plain_delta)
     print("[serve] " + json.dumps(res), flush=True)
-    return res
+    # the frame, its checkpoint and its upscale, for the impls phase
+    return res, dict(lr=frames["a"], sd=sd_serve, sr=sr)
+
+
+def launch_counters():
+    """Kernel name -> the wrapper that counts its launches."""
+    import importlib
+
+    db = importlib.import_module("super_resolution_tpu_torch.ops.dense_block")
+    c3 = importlib.import_module("super_resolution_tpu_torch.ops.conv3x3")
+    return {"dense_block": db.dense_block, "dense_block_bwd":
+            db.dense_block_bwd, "dense_block_nhwc": db.fused_dense_block,
+            "conv3x3": c3.conv3x3}
+
+
+def cli_train_recorded(argv):
+    """``cli.main(argv)`` of a ``train`` command with every step the loop
+    builds wrapped to time it and keep its metrics and the launches it
+    made (the loop logs windowed means).  Every count is set to 0 just
+    before the run.  Returns (rc, per-step records, launches over the
+    run by kernel)."""
+    import torch
+
+    import super_resolution_tpu_torch.train.loop as loop
+    from super_resolution_tpu_torch import cli
+
+    counters = launch_counters()
+    records = []
+
+    def recording(make, kind):
+        def wrapped(step_cfg):
+            step = make(step_cfg)
+
+            def timed(state, batch):
+                torch.cuda.synchronize()
+                before = {n: f.launches for n, f in counters.items()}
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                metrics = step(state, batch)
+                torch.cuda.synchronize()
+                n = {k: f.launches - before[k] for k, f in counters.items()}
+                records.append(dict(
+                    kind=kind, ms=(time.perf_counter() - t0) * 1e3,
+                    fwd=n["dense_block"], bwd=n["dense_block_bwd"],
+                    conv3x3=n["conv3x3"],
+                    peak_bytes=torch.cuda.max_memory_allocated(),
+                    metrics={k: float(v) for k, v in metrics.items()}))
+                return metrics
+
+            return timed
+
+        return wrapped
+
+    orig_makers = loop.make_pretrain_step, loop.make_gan_step
+    loop.make_pretrain_step = recording(orig_makers[0], "warmup")
+    loop.make_gan_step = recording(orig_makers[1], "gan")
+    for f in counters.values():
+        f.launches = 0
+    try:
+        rc = cli.main(argv)
+    finally:
+        loop.make_pretrain_step, loop.make_gan_step = orig_makers
+    return rc, records, {n: f.launches for n, f in counters.items()}
 
 
 def train_phase():
@@ -725,7 +798,6 @@ def train_phase():
     import torch
     from PIL import Image
 
-    import super_resolution_tpu_torch.train.loop as loop
     from super_resolution_tpu_torch import cli
     from super_resolution_tpu_torch.checkpoint import restore_checkpoint
     from super_resolution_tpu_torch.config import preset
@@ -748,34 +820,6 @@ def train_phase():
     want_fwd = n_blocks * ops.LAUNCHES_PER_BLOCK
     want_bwd = n_blocks * ops.BWD_LAUNCHES_PER_BLOCK
     n_warmup, n_steps = 3, 6
-
-    # per-step records: the loop logs windowed means, so the steps it
-    # builds are wrapped to time each one and keep its metrics
-    records = []
-
-    def recording(make, kind):
-        def wrapped(step_cfg):
-            step = make(step_cfg)
-
-            def timed(state, batch):
-                torch.cuda.synchronize()
-                f0, b0 = ops.dense_block.launches, \
-                    ops.dense_block_bwd.launches
-                torch.cuda.reset_peak_memory_stats()
-                t0 = time.perf_counter()
-                metrics = step(state, batch)
-                torch.cuda.synchronize()
-                records.append(dict(
-                    kind=kind, ms=(time.perf_counter() - t0) * 1e3,
-                    fwd=ops.dense_block.launches - f0,
-                    bwd=ops.dense_block_bwd.launches - b0,
-                    peak_bytes=torch.cuda.max_memory_allocated(),
-                    metrics={k: float(v) for k, v in metrics.items()}))
-                return metrics
-
-            return timed
-
-        return wrapped
 
     def swapped(fn):
         """Run ``fn`` with the dense block's forward and backward
@@ -802,21 +846,13 @@ def train_phase():
 
     with tempfile.TemporaryDirectory() as tmp:
         ck, log = os.path.join(tmp, "ck"), os.path.join(tmp, "log")
-        orig_makers = loop.make_pretrain_step, loop.make_gan_step
-        loop.make_pretrain_step = recording(orig_makers[0], "warmup")
-        loop.make_gan_step = recording(orig_makers[1], "gan")
-        ops.dense_block.launches = 0
-        ops.dense_block_bwd.launches = 0
-        try:
-            rc = cli.main(["train", "--preset", "train_gan_dfm",
-                           "--dataset_dir", os.path.join(tmp, "no_dataset"),
-                           "--steps", str(n_steps), "--warmup_batches",
-                           str(n_warmup), "--checkpoint_dir", ck,
-                           "--log_dir", log])
-        finally:
-            loop.make_pretrain_step, loop.make_gan_step = orig_makers
-        fwd_launches = ops.dense_block.launches
-        bwd_launches = ops.dense_block_bwd.launches
+        rc, records, totals = cli_train_recorded(
+            ["train", "--preset", "train_gan_dfm",
+             "--dataset_dir", os.path.join(tmp, "no_dataset"),
+             "--steps", str(n_steps), "--warmup_batches",
+             str(n_warmup), "--checkpoint_dir", ck, "--log_dir", log])
+        fwd_launches = totals["dense_block"]
+        bwd_launches = totals["dense_block_bwd"]
         if rc != 0:
             fail(f"cli train returned {rc}")
         for i, r in enumerate(records):
@@ -995,6 +1031,358 @@ def train_phase():
     return res
 
 
+def conv_bound(shape, cout, dtype_name, out_elt=None):
+    """(bound_ms, bound_by, flops, bytes) of one 3x3 conv on NHWC
+    ``shape``: x, weights and bias read once, y written once."""
+    b, h, w, cin = shape
+    elt = 2 if dtype_name == "bfloat16" else 4
+    out_elt = out_elt or elt
+    flops = 2 * b * h * w * 9 * cin * cout
+    nbytes = (b * h * w * (cin * elt + cout * out_elt)
+              + 9 * cin * cout * elt + 4 * cout)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+
+
+def turns(fns, iters):
+    """ms per call of each of ``fns`` (name -> fn), timed in turns
+    (plain, kernel, library, library, kernel, plain) after a warm-up."""
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    for label in ("plain", "kernel", "library", "library", "kernel",
+                  "plain"):
+        times[label].append(time_ms(fns[label], iters))
+    return {k: sum(v) / len(v) for k, v in times.items()}
+
+
+def conv3x3_phase():
+    """The single-conv kernel against its plain version at the shapes
+    of the tail (conv_impl pallas_cf_tail) and of conv_first / conv_last
+    (conv_impl pallas), flagship batch 8 of 128x128 LR tiles."""
+    import torch
+    import torch.nn.functional as F
+
+    from super_resolution_tpu_torch.device import no_tf32
+    from super_resolution_tpu_torch.ops.conv3x3 import (
+        conv3x3,
+        conv3x3_cf,
+        conv3x3_plain,
+    )
+    from super_resolution_tpu_torch.ops.dense_block import (
+        pack_weight,
+        unpack_weight,
+    )
+
+    cases = [  # name, NHWC x, cout, dtype, LeakyReLU
+        ("conv_body_128", (8, 128, 128, 64), 64, "bfloat16", False),
+        ("upconv1_256", (8, 256, 256, 64), 64, "bfloat16", True),
+        ("hr_conv_512", (8, 512, 512, 64), 64, "bfloat16", True),
+        ("conv_first", (8, 128, 128, 3), 64, "bfloat16", False),
+        ("conv_last", (8, 512, 512, 64), 3, "bfloat16", False),
+        ("upconv_ps", (8, 128, 128, 64), 256, "bfloat16", True),
+        ("odd_fp32", (1, 37, 53, 64), 64, "float32", True),
+    ]
+    results = {}
+    for name, shape, cout, dtype_name, act in cases:
+        dtype = getattr(torch, dtype_name)
+        gen = torch.Generator().manual_seed(300 + len(results))
+        cin = shape[-1]
+        x = torch.randn(shape, generator=gen).to("cuda", dtype)
+        w = pack_weight(torch.randn(cout, cin, 3, 3, generator=gen)
+                        * math.sqrt(2.0 / (9 * cin))).to("cuda", dtype)
+        b = (torch.randn(cout, generator=gen) * 0.1).cuda()
+        w_oihw, b_lib = unpack_weight(w).contiguous(), b.to(dtype)
+        x_cl = x.permute(0, 3, 1, 2)          # NCHW view, channels-last
+        kw = dict(act=act, slope=0.2)
+
+        fns = {"kernel": lambda: conv3x3(x, w, b, **kw),
+               "plain": lambda: conv3x3_plain(x, w, b, **kw),
+               # one cuDNN conv with its bias in the working dtype (no
+               # activation): a yardstick of speed only
+               "library": lambda: F.conv2d(x_cl, w_oihw, b_lib, padding=1)}
+        with torch.inference_mode(), no_tf32():
+            y = fns["kernel"]()
+            torch.cuda.synchronize()
+            ref = fns["plain"]()
+            diff = (y.float() - ref.float()).abs()
+            atol, rtol = CONV_TOL[dtype_name]
+            ok = (y.shape == ref.shape and y.dtype == ref.dtype
+                  and bool(torch.isfinite(y.float()).all())
+                  and (diff - rtol * ref.float().abs()).max().item() <= atol)
+            ms = turns(fns, 10 if shape[1] >= 512 else 20)
+            extra = {}
+            if name == "conv_body_128":
+                # conv3x3_cf's one conversion of a contiguous NCHW input
+                nchw = x_cl.contiguous()
+                extra["cf_nchw_input_ms"] = time_ms(
+                    lambda: conv3x3_cf(nchw, w, b, **kw), 20)
+                extra["cf_channels_last_input_ms"] = time_ms(
+                    lambda: conv3x3_cf(x_cl, w, b, **kw), 20)
+        bound_ms, bound_by, flops, nbytes = conv_bound(shape, cout,
+                                                       dtype_name)
+        results[name] = dict(
+            shape=list(shape), cout=cout, dtype=dtype_name, act=act,
+            max_abs_err=diff.max().item(), atol=atol, rtol=rtol, ok=ok,
+            kernel_ms=ms["kernel"], plain_ms=ms["plain"],
+            library_ms=ms["library"], bound_ms=bound_ms, bound_by=bound_by,
+            flops=flops, bytes=nbytes, roofline_share=bound_ms / ms["kernel"],
+            tflops=flops / (ms["kernel"] * 1e-3) / 1e12, **extra)
+        print("[kernel-conv3x3] " + json.dumps({name: results[name]}),
+              flush=True)
+        if not ok:
+            fail(f"conv3x3 {name}: kernel disagrees with its plain version "
+                 f"(max |err| {diff.max().item()}, tolerance atol {atol} + "
+                 f"rtol {rtol}·|plain|)")
+    return results
+
+
+def fused_phase():
+    """The NHWC dense-block entry against its plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from super_resolution_tpu_torch.device import no_tf32
+    from super_resolution_tpu_torch.ops.dense_block import (
+        fused_dense_block,
+        fused_dense_block_plain,
+    )
+
+    cases = [("flagship", (8, 64, 128, 128), "bfloat16"),
+             ("odd_fp32", (1, 64, 37, 53), "float32")]
+    results = {}
+    for name, shape, dtype_name in cases:
+        dtype = getattr(torch, dtype_name)
+        x, ws, ws_oihw, bs = make_block(shape, 32, dtype, 400 + len(results))
+        x = x.permute(0, 2, 3, 1).contiguous()           # NHWC
+        x_cl = x.permute(0, 3, 1, 2)
+        bias = [bk.to(dtype) for bk in bs]
+        kw = dict(res_scale=0.2, slope=0.2)
+
+        def library():
+            # five cuDNN convs on the channels-last view + torch.cat
+            feats = x_cl
+            for k in range(4):
+                o = F.leaky_relu(F.conv2d(feats, ws_oihw[k], bias[k],
+                                          padding=1), 0.2)
+                feats = torch.cat([feats, o], 1)
+            return x_cl + 0.2 * F.conv2d(feats, ws_oihw[4], bias[4],
+                                         padding=1)
+
+        fns = {"kernel": lambda: fused_dense_block(x, ws, bs, **kw),
+               "plain": lambda: fused_dense_block_plain(x, ws, bs, **kw),
+               "library": library}
+        with torch.inference_mode(), no_tf32():
+            y = fns["kernel"]()
+            torch.cuda.synchronize()
+            ref = fns["plain"]()
+            diff = (y.float() - ref.float()).abs()
+            atol, rtol = TOL[dtype_name]
+            ok = (y.shape == ref.shape == x.shape and y.is_contiguous()
+                  and bool(torch.isfinite(y.float()).all())
+                  and (diff - rtol * ref.float().abs()).max().item() <= atol)
+            ms = turns(fns, 20)
+        bound_ms, bound_by, flops, nbytes = block_bound(shape, 32,
+                                                        dtype_name)
+        results[name] = dict(
+            shape_nhwc=list(x.shape), dtype=dtype_name,
+            max_abs_err=diff.max().item(), atol=atol, rtol=rtol, ok=ok,
+            kernel_ms=ms["kernel"], plain_ms=ms["plain"],
+            library_ms=ms["library"], bound_ms=bound_ms, bound_by=bound_by,
+            roofline_share=bound_ms / ms["kernel"])
+        print("[kernel-fused] " + json.dumps({name: results[name]}),
+              flush=True)
+        if not ok:
+            fail(f"NHWC dense block {name}: kernel disagrees with its plain "
+                 f"version (max |err| {diff.max().item()})")
+    return results
+
+
+def per_forward_launches(impl, gcfg):
+    """Launches of one generator forward under ``impl``, by kernel."""
+    n = gcfg.n_blocks * gcfg.n_dense * 5
+    tail = 2 + gcfg.n_upsample              # conv_body, upconvs, conv_hr
+    return {"pallas_cf_tail": dict(dense_block=n, conv3x3=tail),
+            "pallas": dict(conv3x3=n + tail + 2),   # + conv_first, conv_last
+            "pallas_fused": dict(dense_block_nhwc=n)}[impl]
+
+
+class PlainKernels:
+    """Every kernel wrapper the model calls replaced by its plain version
+    while the block runs."""
+
+    def __enter__(self):
+        import importlib
+
+        import super_resolution_tpu_torch.models.rrdb as rrdb
+
+        self.c3 = importlib.import_module(
+            "super_resolution_tpu_torch.ops.conv3x3")
+        db = importlib.import_module(
+            "super_resolution_tpu_torch.ops.dense_block")
+        self.rrdb = rrdb
+        self.orig = (rrdb.dense_block, rrdb.fused_dense_block,
+                     self.c3.conv3x3)
+        rrdb.dense_block = db.dense_block_plain
+        rrdb.fused_dense_block = db.fused_dense_block_plain
+        self.c3.conv3x3 = self.c3.conv3x3_plain
+        return self
+
+    def __exit__(self, *exc):
+        (self.rrdb.dense_block, self.rrdb.fused_dense_block,
+         self.c3.conv3x3) = self.orig
+
+
+IMPLS = ("pallas_cf_tail", "pallas", "pallas_fused")
+
+
+def impls_phase(frame):
+    """The flagship forward under each of the three further conv impls,
+    then ``cli upscale --conv_impl X`` of the serve phase's frame
+    (``frame``: its RGBA pixels, checkpoint and default-impl upscale)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    import super_resolution_tpu_torch.models.rrdb as rrdb
+    from super_resolution_tpu_torch import cli
+    from super_resolution_tpu_torch.config import GeneratorConfig, TrainConfig
+    from super_resolution_tpu_torch.ops.conv3x3 import conv3x3_cf
+    from super_resolution_tpu_torch.parallel.tiling import plan_tiles
+    from super_resolution_tpu_torch.train.steps import make_infer_fn
+
+    counters = launch_counters()
+    sd = rrdb.RRDBNet(GeneratorConfig(init=SEED_INIT),
+                      torch.Generator().manual_seed(0)).state_dict()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((8, 128, 128, 3))
+                         .astype(np.float32)).cuda()
+    results = {}
+    for impl in IMPLS:
+        gcfg = GeneratorConfig(init=SEED_INIT, conv_impl=impl)
+        infer = make_infer_fn(TrainConfig(compute_dtype="bfloat16",
+                                          generator=gcfg), sd, "cuda")
+        infer(x)                                  # warm-up
+        torch.cuda.synchronize()
+        for f in counters.values():
+            f.launches = 0
+        conv3x3_cf.conversions = 0
+        out = infer(x)
+        torch.cuda.synchronize()
+        got = {n: f.launches for n, f in counters.items() if f.launches}
+        conversions = conv3x3_cf.conversions
+        want = per_forward_launches(impl, gcfg)
+        with PlainKernels():
+            ref = infer(x)
+        rng_ = (ref.max() - ref.min()).item()
+        mse = ((out - ref) ** 2).mean().item()
+        psnr = 10 * math.log10(rng_ ** 2 / mse) if mse > 0 else float("inf")
+        times = [time_ms(lambda: infer(x), 5) for _ in range(3)]
+        ms = sorted(times)[1]
+        results[impl] = dict(
+            launches=got, want=want, nchw_conversions=conversions,
+            psnr_db=psnr, max_abs_err=(out - ref).abs().max().item(),
+            ms=ms, ms_runs=times, mp_per_s=8 * 512 * 512 / 1e6 / (ms / 1e3))
+        print(f"[impls] {impl}: " + json.dumps(results[impl]), flush=True)
+        profile_device(lambda: infer(x), ms, f"impls-profile-{impl}")
+        if got != want:
+            fail(f"{impl}: one forward launched {got}, want {want}")
+        if tuple(out.shape) != (8, 512, 512, 3) or \
+                not bool(torch.isfinite(out).all()):
+            fail(f"{impl}: output {tuple(out.shape)} not finite (8,512,512,3)")
+        if not psnr >= BF16_MODEL_PSNR_FLOOR_DB:
+            fail(f"{impl}: kernel vs plain forward PSNR {psnr} dB below "
+                 f"{BF16_MODEL_PSNR_FLOOR_DB}")
+        del infer
+
+    # cli upscale of the serve phase's frame under each impl
+    tile, halo, tile_batch = 384, 8, 2
+    with tempfile.TemporaryDirectory() as tmp:
+        pth, src = os.path.join(tmp, "g.pth"), os.path.join(tmp, "a.png")
+        torch.save(frame["sd"], pth)
+        Image.fromarray(frame["lr"], "RGBA").save(src)
+        h, w = frame["lr"].shape[:2]
+        _, oys, oxs = plan_tiles(h, w, tile, halo)
+        forwards = math.ceil(len(oys) * len(oxs) / tile_batch)
+        auto = frame["sr"].astype(np.int16)
+        for impl in IMPLS:
+            dst = os.path.join(tmp, f"{impl}.png")
+            for f in counters.values():
+                f.launches = 0
+            t0 = time.perf_counter()
+            rc = cli.main(["upscale", "--image", src, "--checkpoint", pth,
+                           "--out", dst, "--conv_impl", impl])
+            secs = time.perf_counter() - t0
+            got = {n: f.launches for n, f in counters.items() if f.launches}
+            want = {k: forwards * v for k, v in
+                    per_forward_launches(impl, GeneratorConfig()).items()}
+            sr = np.asarray(Image.open(dst))
+            d = np.abs(sr.astype(np.int16) - auto)
+            mse = float((d.astype(np.float64) ** 2).mean())
+            psnr = 10 * math.log10(255.0 ** 2 / mse) if mse else float("inf")
+            res = dict(rc=rc, s=secs, launches=got, want=want,
+                       shape=list(sr.shape), max_lsb_vs_auto=int(d.max()),
+                       mean_lsb_vs_auto=float(d.mean()),
+                       psnr_db_vs_auto=psnr)
+            results[f"cli_{impl}"] = res
+            print(f"[impls] cli upscale --conv_impl {impl}: "
+                  + json.dumps(res), flush=True)
+            if rc != 0 or tuple(sr.shape) != auto.shape or got != want:
+                fail(f"cli upscale --conv_impl {impl}: {res}")
+            if not np.array_equal(sr[..., 3], frame["sr"][..., 3]):
+                fail(f"cli upscale --conv_impl {impl} did not keep alpha")
+            if not psnr >= CLI_IMPL_PSNR_FLOOR_DB:
+                fail(f"cli upscale --conv_impl {impl} is {psnr} dB from the "
+                     f"default path's frame (floor {CLI_IMPL_PSNR_FLOOR_DB})")
+    return results
+
+
+def tail_train_phase():
+    """``cli train --preset train_gan_dfm --conv_impl pallas_cf_tail``,
+    full width, two warmup and two GAN steps: the dense-block kernels
+    forward and backward and the tail kernel in every generator update,
+    finite metrics."""
+    import importlib
+
+    ops = importlib.import_module(
+        "super_resolution_tpu_torch.ops.dense_block")
+    from super_resolution_tpu_torch.config import preset
+
+    gcfg = preset("train_gan_dfm").generator
+    n_blocks = gcfg.n_blocks * gcfg.n_dense
+    want = dict(fwd=n_blocks * ops.LAUNCHES_PER_BLOCK,
+                bwd=n_blocks * ops.BWD_LAUNCHES_PER_BLOCK,
+                conv3x3=per_forward_launches("pallas_cf_tail",
+                                             gcfg)["conv3x3"])
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, records, totals = cli_train_recorded(
+            ["train", "--preset", "train_gan_dfm", "--conv_impl",
+             "pallas_cf_tail", "--dataset_dir",
+             os.path.join(tmp, "no_dataset"), "--steps", "4",
+             "--warmup_batches", "2", "--checkpoint_dir",
+             os.path.join(tmp, "ck")])
+    for i, r in enumerate(records):
+        print(f"[train-tail] step {i + 1} " + json.dumps(r), flush=True)
+    print(f"[train-tail] launches per generator update: forward "
+          f"{sorted({r['fwd'] for r in records})}, backward "
+          f"{sorted({r['bwd'] for r in records})}, tail conv3x3 "
+          f"{sorted({r['conv3x3'] for r in records})} (want {want}); over "
+          f"the run {totals}", flush=True)
+    if rc != 0 or [r["kind"] for r in records] != ["warmup"] * 2 + ["gan"] * 2:
+        fail(f"cli train --conv_impl pallas_cf_tail: rc {rc}, steps "
+             f"{[r['kind'] for r in records]}")
+    if any(r[k] != v for r in records for k, v in want.items()):
+        fail("cli train --conv_impl pallas_cf_tail did not launch every "
+             "kernel of its path in every generator update")
+    for i, r in enumerate(records):
+        bad = [k for k, v in r["metrics"].items() if not math.isfinite(v)]
+        if bad:
+            fail(f"pallas_cf_tail step {i + 1}: metrics {bad} not finite")
+    return dict(totals=totals, per_update=want,
+                gan_step_ms=records[-1]["ms"], warmup_step_ms=records[1]["ms"])
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "super_resolution_tpu_torch")):
         print("chip_smoke: the super_resolution_tpu_torch package is not "
@@ -1031,8 +1419,12 @@ def main() -> int:
     kern = kernel_phase()
     kern_bwd = bwd_kernel_phase()
     model_phase()
-    serve = serve_phase()
+    serve, frame = serve_phase()
     train = train_phase()
+    conv = conv3x3_phase()
+    fused = fused_phase()
+    impls = impls_phase(frame)
+    tail_train = tail_train_phase()
 
     flag, bwd = kern["flagship"], kern_bwd["train"]
     serve_launches = serve["upscale_launches"] + serve["serve_launches"]
@@ -1066,6 +1458,42 @@ def main() -> int:
         "bound_by": bwd["bound_by"],
         "library_ms": bwd["library_ms"],
         "kernels_device_ms": bwd["kernels_device_ms"],
+    }, {
+        "name": "conv3x3",
+        "route": "cuda",
+        "source": "super_resolution_tpu_torch/csrc/conv3x3.cu",
+        "replaces": REPLACES_CONV,
+        # cli upscale --conv_impl pallas_cf_tail and pallas, then cli
+        # train --conv_impl pallas_cf_tail, each counted from 0
+        "launches": (impls["cli_pallas_cf_tail"]["launches"]["conv3x3"]
+                     + impls["cli_pallas"]["launches"]["conv3x3"]
+                     + tail_train["totals"]["conv3x3"]),
+        "launches_upscale_pallas_cf_tail":
+            impls["cli_pallas_cf_tail"]["launches"]["conv3x3"],
+        "launches_upscale_pallas": impls["cli_pallas"]["launches"]["conv3x3"],
+        "launches_train_pallas_cf_tail": tail_train["totals"]["conv3x3"],
+        # the flagship tail's 512 x 512 plane (hr_conv, upconv2)
+        "max_abs_err": conv["hr_conv_512"]["max_abs_err"],
+        "ms": conv["hr_conv_512"]["kernel_ms"],
+        "plain_ms": conv["hr_conv_512"]["plain_ms"],
+        "bound_ms": conv["hr_conv_512"]["bound_ms"],
+        "bound_by": conv["hr_conv_512"]["bound_by"],
+        "library_ms": conv["hr_conv_512"]["library_ms"],
+        "ms_by_shape": {k: v["kernel_ms"] for k, v in conv.items()},
+    }, {
+        "name": "dense_block_nhwc",
+        "route": "cuda",
+        "source": "super_resolution_tpu_torch/csrc/dense_block.cu",
+        "replaces": REPLACES_NHWC,
+        # cli upscale --conv_impl pallas_fused, counted from 0
+        "launches": impls["cli_pallas_fused"]["launches"][
+            "dense_block_nhwc"],
+        "max_abs_err": fused["flagship"]["max_abs_err"],
+        "ms": fused["flagship"]["kernel_ms"],
+        "plain_ms": fused["flagship"]["plain_ms"],
+        "bound_ms": fused["flagship"]["bound_ms"],
+        "bound_by": fused["flagship"]["bound_by"],
+        "library_ms": fused["flagship"]["library_ms"],
     }]}))
     print(smi)                       # card name, power limit
     print(json.dumps({"ok": True, "device": {

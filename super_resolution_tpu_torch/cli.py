@@ -15,9 +15,15 @@ files in any of the three naming families, or a checkpoint directory
 written by ``train``; orbax directories are the JAX package's format and
 are refused.  ``--data_parallel`` above 1, ``--multihost``,
 ``--loader grain``, ``--profile_dir`` and ``--eval_dir`` are accepted by
-the parser and raise: they are not ported yet (ROADMAP.md).  Default tile geometry: square 384,
-no height bucket, no alignment (the H100 geometry sweep is a ROADMAP
-item).
+the parser and raise: they are not ported yet (ROADMAP.md).
+``--conv_impl`` picks the conv path by the JAX package's names (``auto``
+= ``pallas_cf``, ``pallas_cf_tail``, ``pallas``, ``pallas_fused``;
+``lax`` is not ported yet and raises) for ``upscale``, ``serve`` and
+``train``; a checkpoint sets the architecture, never the impl.  Default
+tile geometry: square 384, no height bucket, no alignment under every
+impl: the port's kernels take every tile shape, so the JAX package's
+(8, 128) clamp for its TPU kernels' bands is not carried over (the H100
+geometry sweep is a ROADMAP item).
 """
 
 from __future__ import annotations
@@ -222,9 +228,14 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--conv_impl", default=None,
                    choices=("auto", "lax", "pallas", "pallas_fused",
                             "pallas_cf", "pallas_cf_tail"),
-                   help="the port takes only 'auto' (every conv dispatches "
-                        "by the tensor's device); the other names are the "
-                        "JAX package's and raise")
+                   help="conv path, by the JAX package's names: auto "
+                        "(= pallas_cf: the dense-block kernel), "
+                        "pallas_cf_tail (+ the single-conv kernel on the "
+                        "upsample tail), pallas (every conv through the "
+                        "single-conv kernel), pallas_fused (the NHWC "
+                        "dense-block entry); lax is not ported yet and "
+                        "raises.  Training runs pallas and pallas_fused "
+                        "on pallas_cf (no backward)")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--data_parallel", type=int, default=None,
                    help="DP-of-tiles over this many devices (the port "

@@ -6,10 +6,16 @@ equal, and ``preset`` knows its presets by name.  ``train_gan_dp8``
 (``data_parallel=8``) needs DDP, which is not ported yet: asking for it
 raises.
 
-``conv_impl`` stays a field so configs compare equal, but the port
-takes only ``"auto"``: every conv dispatches by the device of the
-tensor it is given (the dense-block kernel on CUDA, its plain version on
-the CPU).  There is no backend fallback to resolve.
+``conv_impl`` picks the conv path of the JAX package's name
+(:func:`resolve_conv_impl`): ``"auto"`` is ``"pallas_cf"``, the JAX
+package's TPU path (every dense block through the dense-block kernel,
+NCHW inside); ``"pallas_cf_tail"`` also runs ``conv_body``, the upsample
+convs and ``conv_hr`` through the single-conv kernel; ``"pallas"`` runs
+every conv through the single-conv kernel and ``"pallas_fused"`` every
+dense block through the NHWC dense-block entry, both NHWC inside.  Each
+kernel dispatches by the device of the tensor it is given (the kernel
+on CUDA, its plain version on the CPU), so there is no backend
+fallback.  ``"lax"`` (XLA's conv, no kernel) is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +26,15 @@ from typing import Optional, Tuple
 
 IMAGENET_MEAN: Tuple[float, float, float] = (0.485, 0.456, 0.406)
 IMAGENET_STD: Tuple[float, float, float] = (0.229, 0.224, 0.225)
+
+CONV_IMPLS = ("auto", "pallas_cf", "pallas_cf_tail", "pallas",
+              "pallas_fused")
+
+
+def resolve_conv_impl(impl: str) -> str:
+    """``"auto"`` -> ``"pallas_cf"``, the JAX package's choice on its own
+    accelerator; named impls pass through unchanged."""
+    return "pallas_cf" if impl == "auto" else impl
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,11 +59,13 @@ class GeneratorConfig:
     tail_up: str = "naive"            # "polyphase" is not ported yet
 
     def __post_init__(self):
-        if self.conv_impl != "auto":
+        if self.conv_impl == "lax":
             raise NotImplementedError(
-                f"conv_impl={self.conv_impl!r}: the port dispatches every "
-                f"conv by the tensor's device and takes only 'auto'; the "
-                f"JAX package's other conv paths are queued in ROADMAP.md")
+                "conv_impl='lax' (XLA's conv, no kernel) is not ported yet "
+                "(ROADMAP.md Queue 1, the modules still missing)")
+        if self.conv_impl not in CONV_IMPLS:
+            raise ValueError(f"unknown conv_impl {self.conv_impl!r}; have "
+                             f"{CONV_IMPLS}")
 
     @property
     def n_upsample(self) -> int:

@@ -4,7 +4,9 @@
 // Replaces the TPU kernels
 //   super_resolution_tpu/ops/pallas/dense_block_cf.py:fused_dense_block_cf5
 //   super_resolution_tpu/ops/pallas/dense_block_cf_ext.py:fused_dense_block_cf9
-// (one function, one contract).  For k = 1..4
+// (one function, one contract), and with x and y channels-last
+//   super_resolution_tpu/ops/pallas/dense_block.py:fused_dense_block
+// (the same function behind an NHWC contract).  For k = 1..4
 //   x_k = LReLU(conv3x3(cat(x, x_1..x_{k-1})) + b_k)
 // and y = x + res_scale * conv5(cat(x, x_1..x_4)).  Numerics follow the
 // Pallas kernels, not the per-conv lax path: every conv accumulates in
@@ -13,10 +15,11 @@
 // residual, and y is rounded to x's dtype.
 //
 // Layout.  The wrapper (ops/dense_block.py) allocates one channels-last
-// feature buffer (B, H, W, C + 4G) and copies the NCHW input x into
-// channels [0, C).  Launch k reads the channel prefix [0, C + (k-1)G)
-// and its epilogue writes the next channel slice, so the concat costs
-// nothing; launch 5 writes y (NCHW, like x) and reads x for the
+// feature buffer (B, H, W, C + 4G) and copies the input x into channels
+// [0, C) (from NCHW a transpose, from NHWC a strided copy).  Launch k
+// reads the channel prefix [0, C + (k-1)G) and its epilogue writes the
+// next channel slice, so the concat costs nothing; launch 5 writes y in
+// x's layout (NCHW, or NHWC with the nhwc flag) and reads x for the
 // residual.  Channels-last puts the channels of one pixel side by side,
 // so a tile's input moves as 16-byte copies.  Weights are packed once
 // per model as (9, cout, cin): tap-major (tap = dy*3 + dx), then output
@@ -52,10 +55,11 @@ struct ConvArgs {
   ConvIn c;                // buffer, weights (9, cout, cin), geometry
   const float* bias;       // (cout,)
   void* out;               // convs 1-4: buffer + first output channel;
-                           // conv5: y, (B, cout, H, W)
-  const void* res;         // conv5: x, (B, cout, H, W); else unused
+                           // conv5: y, (B, cout, H, W) or (B, H, W, cout)
+  const void* res;         // conv5: x, laid out like y; else unused
   float slope, res_scale;
   int residual;            // 0: LReLU epilogue, 1: y = x + res_scale * conv
+  int nhwc;                // conv5: x and y are NHWC (else NCHW)
 };
 
 // convs 1-4: bias, LeakyReLU, rounding to T (the value stored)
@@ -66,12 +70,13 @@ __device__ __forceinline__ T act_out(const ConvArgs& a, int n, float acc) {
 }
 
 // conv5: bias, rounding to T, then the f32 residual with x, rounded to T;
-// y and x are NCHW
+// y and x are NCHW, or NHWC with a.nhwc
 template <typename T>
 __device__ __forceinline__ void store_res(const ConvArgs& a, int b, int n,
                                           size_t pix, float acc) {
   const size_t hw = (size_t)a.c.h * a.c.w_img;
-  const size_t i = ((size_t)b * a.c.cout + n) * hw + pix;
+  const size_t i = a.nhwc ? ((size_t)b * hw + pix) * a.c.cout + n
+                          : ((size_t)b * a.c.cout + n) * hw + pix;
   const float conv5 = to_f32(from_f32<T>(__fadd_rn(acc, a.bias[n])));
   const float x = to_f32(static_cast<const T*>(a.res)[i]);
   static_cast<T*>(a.out)[i] =
@@ -180,7 +185,7 @@ extern "C" int dense_block_conv(int is_bf16, const void* in, int c_total,
                                 int cin, const void* w, const void* bias,
                                 int cout, void* out, const void* res,
                                 int batch, int h, int w_img, float slope,
-                                float res_scale, int residual,
+                                float res_scale, int residual, int nhwc,
                                 void* stream) {
   if (cout < 8 || cout > 64 || cout % 8 || cin < 8 || cin % 8 ||
       c_total % 8 || cin > c_total || batch < 1 || batch > 65535 ||
@@ -188,7 +193,7 @@ extern "C" int dense_block_conv(int is_bf16, const void* in, int c_total,
     return (int)cudaErrorInvalidValue;
   ConvArgs a{{in, c_total, cin, w, cout, h, w_img},
              static_cast<const float*>(bias), out, res, slope, res_scale,
-             residual};
+             residual, nhwc};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (cout <= 16) return launch_nt<2>(is_bf16, a, batch, s);
   if (cout <= 32) return launch_nt<4>(is_bf16, a, batch, s);

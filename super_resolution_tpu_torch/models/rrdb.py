@@ -1,4 +1,4 @@
-"""RRDBNet ×4 generator in PyTorch: NHWC in and out, NCHW inside.
+"""RRDBNet ×4 generator in PyTorch: NHWC in and out.
 
 The architecture of the JAX package's ``models/rrdb.py``: a 3×3 conv
 stem, ``n_blocks`` Residual-in-Residual Dense Blocks, a trunk conv with
@@ -6,23 +6,43 @@ a global residual, two ×2 upsample stages (nearest+conv, or conv+pixel
 shuffle), an HR conv and an output conv.  Module names are BasicSR's
 (``conv_first``, ``body.{i}.rdb{k}.conv{j}``, ``conv_body``,
 ``conv_up1``, ``conv_up2``, ``conv_hr``, ``conv_last``), so a BasicSR
-``.pth`` loads with ``strict=True``.
+``.pth`` loads with ``strict=True``, and the parameters and their
+initial values are the same under every ``cfg.conv_impl``, which picks
+the conv path as the JAX package's does:
 
-Every dense block goes through :func:`ops.dense_block.dense_block` —
-the hand-written kernel on CUDA, its plain version on the CPU.  The
-stem, trunk and tail convs are ``F.conv2d``, as the JAX package leaves
-them to XLA.  As in the JAX package's ``pallas_cf`` path, the model
-transposes once at each end and runs NCHW in between.
+- ``pallas_cf`` (``auto``): NCHW inside, one transpose at each end.
+  Every dense block through :func:`ops.dense_block.dense_block` (the
+  dense-block kernel); the stem, trunk and tail convs ``F.conv2d``, as
+  the JAX package leaves them to XLA.
+- ``pallas_cf_tail``: ``pallas_cf``, with ``conv_body``, the upsample
+  convs and ``conv_hr`` through :func:`ops.conv3x3.conv3x3_cf` (the
+  single-conv kernel), LeakyReLU fused where the JAX package fuses it.
+  The tail stays in ``torch.channels_last`` memory format from
+  ``conv_body`` to ``conv_hr``, the layout the kernel reads and writes;
+  ``conv_last`` is ``F.conv2d``.
+- ``pallas``: NHWC inside.  Every conv through
+  :func:`ops.conv3x3.packed_conv3x3` without activation, rounded to the
+  compute dtype; each dense block conv by conv in the JAX order (the
+  conv, LeakyReLU in the compute dtype, the concat — here the conv
+  writes its channel slice of one buffer — and the residual in the
+  compute dtype).
+- ``pallas_fused``: NHWC inside.  Every dense block through
+  :func:`ops.dense_block.fused_dense_block`; the stem, trunk and tail
+  convs ``F.conv2d`` on the channels-last view.
 
-Parameters are float32.  :meth:`RRDBNet.prepare` casts them to the
-compute dtype and packs the dense-block weights into the kernel's layout
-once, after the weights are loaded; run it again after changing them.
-That cached path is detached and serves inference.  For training,
+On CUDA tensors the kernels launch; on CPU tensors their plain versions
+run.  Parameters are float32.  :meth:`RRDBNet.prepare` casts them to
+the compute dtype and packs the kernels' weights once, after the
+weights are loaded; run it again after changing them.  That cached path
+is detached and serves inference.  For training,
 ``prepare(dtype, live=True)`` keeps no cache: every forward casts and
 packs the live parameters inside the graph and runs the dense blocks
-through :func:`ops.dense_block.dense_block_train`, so gradients reach
-the float32 ``weight`` and ``bias``.  In float32 every conv runs with TF32 off (the JAX package pins
-``Precision.HIGHEST`` for float32).
+through :func:`ops.dense_block.dense_block_train` and the tail kernels
+through :func:`ops.conv3x3.conv3x3_cf_train`, so gradients reach the
+float32 ``weight`` and ``bias``; ``pallas`` and ``pallas_fused`` have
+no backward (``train.steps.training_cfg`` trains them on
+``pallas_cf``).  In float32 every conv runs with TF32 off (the JAX
+package pins ``Precision.HIGHEST`` for float32).
 """
 
 from __future__ import annotations
@@ -33,34 +53,61 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from super_resolution_tpu_torch.config import GeneratorConfig
+from super_resolution_tpu_torch.config import (
+    GeneratorConfig,
+    resolve_conv_impl,
+)
 from super_resolution_tpu_torch.device import no_tf32
 from super_resolution_tpu_torch.models.initializers import conv_init_
+from super_resolution_tpu_torch.ops.conv3x3 import (
+    conv3x3_cf,
+    conv3x3_cf_train,
+    packed_conv3x3,
+)
 from super_resolution_tpu_torch.ops.dense_block import (
     N_CONVS,
     dense_block,
     dense_block_train,
+    fused_dense_block,
     pack_weight,
 )
 from super_resolution_tpu_torch.ops.shuffle import (
     nearest_upsample,
+    nearest_upsample_nhwc,
     pixel_shuffle,
+    pixel_shuffle_nhwc,
 )
+
+NHWC_IMPLS = ("pallas", "pallas_fused")   # the model runs NHWC inside
+
+
+def _on_nhwc(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` of an NHWC op on the channels-last storage of NCHW ``x``;
+    the result is NCHW in channels-last memory format again."""
+    return fn(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
 
 class Conv3x3(nn.Module):
-    """3×3 SAME conv with float32 ``weight`` (OIHW) and ``bias``."""
+    """3×3 SAME conv with float32 ``weight`` (OIHW) and ``bias``.
+    ``forward`` is ``F.conv2d`` (bias in the compute dtype); :meth:`cf`
+    and :meth:`nhwc` are the single-conv kernel."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3))
         self.bias = nn.Parameter(torch.empty(cout))
-        self._w = self._b = self._dtype = None
+        self._w = self._b = self._wp = self._bf = self._dtype = None
 
     def prepare(self, dtype: torch.dtype, live: bool = False) -> None:
+        """Cache the weights cast for ``F.conv2d`` and packed for the
+        kernel; ``live`` leaves both to every forward."""
         self._dtype = dtype
-        self._w = None if live else self.weight.detach().to(dtype)
-        self._b = None if live else self.bias.detach().to(dtype)
+        self._w = self._b = self._wp = self._bf = None
+        if not live:
+            w = self.weight.detach()
+            self._w, self._b = w.to(dtype), self.bias.detach().to(dtype)
+            self._wp = pack_weight(w).to(dtype)
+            self._bf = self.bias.detach().float().contiguous()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self._w is None:     # live: cast inside the graph
@@ -68,10 +115,28 @@ class Conv3x3(nn.Module):
                             self.bias.to(self._dtype), padding=1)
         return F.conv2d(x, self._w, self._b, padding=1)
 
+    def cf(self, x: torch.Tensor, act: bool, slope: float) -> torch.Tensor:
+        """The kernel on NCHW ``x``; channels-last out."""
+        if self._w is None:     # live: cast and pack inside the graph
+            return conv3x3_cf_train(x, pack_weight(self.weight)
+                                    .to(self._dtype), self.bias, act=act,
+                                    slope=slope)
+        return conv3x3_cf(x, self._wp, self._bf, act=act, slope=slope)
+
+    def nhwc(self, x: torch.Tensor) -> torch.Tensor:
+        """The kernel on NHWC ``x``, no activation (``pallas``)."""
+        return packed_conv3x3(x, self._wp, self._bf, apply_act=False,
+                              out_dtype=self._dtype)
+
+    def lax_nhwc(self, x: torch.Tensor) -> torch.Tensor:
+        """``forward`` on NHWC ``x`` through its channels-last view."""
+        return self(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
+
 
 class DenseBlock(nn.Module):
     """5-conv dense block with residual scaling; conv k reads the concat
-    of the input and every earlier output.  Runs as one kernel call."""
+    of the input and every earlier output.  NCHW in and out under the
+    channels-first impls, NHWC under ``pallas`` and ``pallas_fused``."""
 
     def __init__(self, cfg: GeneratorConfig):
         super().__init__()
@@ -80,6 +145,7 @@ class DenseBlock(nn.Module):
                 f"the dense-block kernel runs {N_CONVS} convs, got "
                 f"n_dense_convs={cfg.n_dense_convs}")
         self.cfg = cfg
+        self.impl = resolve_conv_impl(cfg.conv_impl)
         cin = cfg.filters
         for j in range(1, N_CONVS + 1):
             width = cfg.filters if j == N_CONVS else cfg.growth
@@ -91,8 +157,8 @@ class DenseBlock(nn.Module):
         return [getattr(self, f"conv{j}") for j in range(1, N_CONVS + 1)]
 
     def prepare(self, dtype: torch.dtype, live: bool = False) -> None:
-        """Pack the weights into the kernel's layout in ``dtype`` and
-        keep the biases float32, as the kernel takes them; ``live``
+        """Pack the weights into the kernels' layout in ``dtype`` and
+        keep the biases float32, as the kernels take them; ``live``
         leaves that to every forward."""
         self._dtype = dtype
         self._w = self._b = None
@@ -104,12 +170,35 @@ class DenseBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         kw = dict(res_scale=self.cfg.res_scale, slope=self.cfg.lrelu_slope)
+        if self.impl == "pallas":
+            return self._per_conv_nhwc(x)
+        if self.impl == "pallas_fused":
+            return fused_dense_block(x, self._w, self._b, **kw)
         if self._w is None:     # live: cast and pack inside the graph
             return dense_block_train(
                 x, [pack_weight(c.weight).to(self._dtype)
                     for c in self.convs()],
                 [c.bias for c in self.convs()], **kw)
         return dense_block(x, self._w, self._b, **kw)
+
+    def _per_conv_nhwc(self, x: torch.Tensor) -> torch.Tensor:
+        """``pallas``: each conv through the single-conv kernel into its
+        channel slice of one buffer, then LeakyReLU in place, in the
+        compute dtype; the residual in the compute dtype."""
+        b, h, w, c = x.shape
+        slope = self.cfg.lrelu_slope
+        buf = x.new_empty((b, h, w, c + (N_CONVS - 1) * self.cfg.growth))
+        buf[..., :c].copy_(x)
+        cin = c
+        for k in range(N_CONVS - 1):
+            cout = self._w[k].shape[1]
+            out = buf[..., cin:cin + cout]
+            packed_conv3x3(buf[..., :cin], self._w[k], self._b[k],
+                           apply_act=False, out=out)
+            F.leaky_relu_(out, slope)
+            cin += cout
+        out = packed_conv3x3(buf, self._w[-1], self._b[-1], apply_act=False)
+        return x + self.cfg.res_scale * out
 
 
 class RRDB(nn.Module):
@@ -144,6 +233,7 @@ class RRDBNet(nn.Module):
         if cfg.upsampler not in ("nearest_conv", "pixelshuffle"):
             raise ValueError(f"unknown upsampler {cfg.upsampler!r}")
         self.cfg = cfg
+        self.impl = resolve_conv_impl(cfg.conv_impl)
         nf = cfg.filters
         self.conv_first = Conv3x3(cfg.channels, nf)
         self.body = nn.Sequential(*[RRDB(cfg) for _ in range(cfg.n_blocks)])
@@ -161,12 +251,21 @@ class RRDBNet(nn.Module):
         self._dtype = self._device = None
 
     def prepare(self, dtype: torch.dtype, live: bool = False) -> "RRDBNet":
-        """Cast to the compute dtype and pack the kernel's weights, on the
-        parameters' device.  Call after loading weights or moving the
+        """Cast to the compute dtype and pack the kernels' weights, on
+        the parameters' device.  Call after loading weights or moving the
         model; returns self.  ``live=True`` is the training mode: no
         cache, the parameters are cast and packed inside the graph."""
+        if live and self.impl in NHWC_IMPLS:
+            raise NotImplementedError(
+                f"conv_impl={self.impl!r} has no backward (nor has it in "
+                f"the JAX package); train.steps.training_cfg trains it on "
+                f"'pallas_cf'")
+        # a dense block's convs run from the block's own packed weights
         for m in self.modules():
-            if isinstance(m, (Conv3x3, DenseBlock)):
+            if isinstance(m, DenseBlock):
+                m.prepare(dtype, live)
+        for m in self.children():
+            if isinstance(m, Conv3x3):
                 m.prepare(dtype, live)
         self._dtype = dtype
         self._device = self.conv_first.weight.device
@@ -179,18 +278,56 @@ class RRDBNet(nn.Module):
         if x.device != self._device:
             raise RuntimeError(f"input on {x.device}, model prepared on "
                                f"{self._device}")
+        with no_tf32():
+            x = x.to(self._dtype)
+            if self.impl in NHWC_IMPLS:
+                return self._forward_nhwc(x.contiguous()).float()
+            out = self._forward_nchw(x.permute(0, 3, 1, 2).contiguous())
+        return out.float().permute(0, 2, 3, 1)
+
+    def _forward_nchw(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         slope = cfg.lrelu_slope
-        with no_tf32():
-            x = x.permute(0, 3, 1, 2).to(self._dtype).contiguous()
-            fea = self.conv_first(x)
-            fea = fea + self.conv_body(self.body(fea))
+        fea = self.conv_first(x)
+        trunk = self.body(fea)
+        if self.impl == "pallas_cf_tail":
+            # channels-last from here to conv_hr: the kernel's layout
+            fea = self.conv_body.cf(trunk, False, slope) + fea
             for u in range(1, cfg.n_upsample + 1):
                 conv = getattr(self, f"conv_up{u}")
                 if cfg.upsampler == "nearest_conv":
-                    fea = F.leaky_relu(conv(nearest_upsample(fea, 2)), slope)
+                    fea = conv.cf(_on_nhwc(nearest_upsample_nhwc, fea), True,
+                                  slope)
                 else:
-                    fea = pixel_shuffle(F.leaky_relu(conv(fea), slope), 2)
-            fea = F.leaky_relu(self.conv_hr(fea), slope)
-            out = self.conv_last(fea)
-        return out.float().permute(0, 2, 3, 1)
+                    fea = _on_nhwc(lambda t: pixel_shuffle_nhwc(t, 2),
+                                   conv.cf(fea, True, slope))
+            return self.conv_last(self.conv_hr.cf(fea, True, slope))
+        fea = fea + self.conv_body(trunk)
+        for u in range(1, cfg.n_upsample + 1):
+            conv = getattr(self, f"conv_up{u}")
+            if cfg.upsampler == "nearest_conv":
+                fea = F.leaky_relu(conv(nearest_upsample(fea, 2)), slope)
+            else:
+                fea = pixel_shuffle(F.leaky_relu(conv(fea), slope), 2)
+        fea = F.leaky_relu(self.conv_hr(fea), slope)
+        return self.conv_last(fea)
+
+    def _forward_nhwc(self, x: torch.Tensor) -> torch.Tensor:
+        """``pallas`` and ``pallas_fused``: NHWC throughout; LeakyReLU in
+        the compute dtype after each tail conv, as the JAX package's
+        non-channels-first branch has it."""
+        cfg = self.cfg
+        slope = cfg.lrelu_slope
+        conv = Conv3x3.nhwc if self.impl == "pallas" else Conv3x3.lax_nhwc
+        fea = conv(self.conv_first, x)
+        fea = fea + conv(self.conv_body, self.body(fea))
+        for u in range(1, cfg.n_upsample + 1):
+            up = getattr(self, f"conv_up{u}")
+            if cfg.upsampler == "nearest_conv":
+                fea = F.leaky_relu(conv(up, nearest_upsample_nhwc(fea)),
+                                   slope)
+            else:
+                fea = pixel_shuffle_nhwc(F.leaky_relu(conv(up, fea), slope),
+                                         2)
+        fea = F.leaky_relu(conv(self.conv_hr, fea), slope)
+        return conv(self.conv_last, fea)

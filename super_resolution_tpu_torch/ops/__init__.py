@@ -1,4 +1,5 @@
-"""Ops of the port: the dense-block kernel, shuffles, PIL-parity bicubic
+"""Ops of the port: the dense-block kernel (``ops.dense_block``), the
+single-conv kernel (``ops.conv3x3``), shuffles, PIL-parity bicubic
 resampling and self-ensemble."""
 
 from super_resolution_tpu_torch.ops.dense_block import dense_block  # noqa: F401

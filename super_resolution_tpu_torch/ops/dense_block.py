@@ -25,6 +25,15 @@ takes the slope branch where a saved activation is exactly 0.
 ``dense_block_cf_train`` — and returns dW in the weights' dtype, as the
 JAX VJP does.
 
+:func:`fused_dense_block` is the same forward on an NHWC x, returning
+an NHWC y: the NHWC entry of ``csrc/dense_block.cu``, which replaces
+``ops/pallas/dense_block.py:fused_dense_block`` (the ``pallas_fused``
+conv path).  x lands in the channels-last feature buffer as a strided
+copy, and the last launch writes y channels-last.  The Pallas kernel
+rounds each tap's partial product to the compute dtype before its f32
+tap sum (a VMEM saving of the TPU); the port sums the taps in f32, so
+bf16 results differ from it by that rounding, and float32 agrees.
+
 On a CUDA tensor these launch the kernels of ``csrc/dense_block.cu``
 (five launches, one per conv) and ``csrc/dense_block_bwd.cu`` (fifteen:
 per conv a data gradient, a weight gradient and its reduction) or
@@ -118,20 +127,21 @@ def _check_weights(c: int, dtype: torch.dtype, device: torch.device,
 
 
 def _check(x: torch.Tensor, weights: Sequence[torch.Tensor],
-           biases: Sequence[torch.Tensor]) -> None:
+           biases: Sequence[torch.Tensor], layout: str = "NCHW") -> None:
     if x.dim() != 4:
-        raise ValueError(f"x must be (B, C, H, W), got {tuple(x.shape)}")
+        raise ValueError(f"x must be {layout}, got {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
-        raise ValueError("x must be contiguous (NCHW)")
+        raise ValueError(f"x must be contiguous ({layout})")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, *weights, *biases)):
         raise RuntimeError(
-            "dense_block has no gradient, and an input requires one: use "
-            "dense_block_train (RRDBNet.prepare(dtype, live=True)), or "
+            "the dense-block forward has no gradient here, and an input "
+            "requires one: use dense_block_train (RRDBNet.prepare(dtype, "
+            "live=True) under conv_impl pallas_cf or pallas_cf_tail), or "
             "run under torch.no_grad()")
-    _check_weights(x.shape[1], x.dtype, x.device, weights)
+    _check_weights(x.shape[layout.index("C")], x.dtype, x.device, weights)
     if len(biases) != N_CONVS:
         raise ValueError(f"expected {N_CONVS} biases, got {len(biases)}")
     for k, (wk, bk) in enumerate(zip(weights, biases)):
@@ -287,7 +297,7 @@ def _lib() -> ctypes.CDLL:
     if lib.dense_block_conv.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         _argtypes(lib.dense_block_conv,
-                  [i, vp, i, i, vp, vp, i, vp, vp, i, i, i, f, f, i, vp])
+                  [i, vp, i, i, vp, vp, i, vp, vp, i, i, i, f, f, i, i, vp])
         lib.dense_block_error_string.argtypes = [i]
         lib.dense_block_error_string.restype = ctypes.c_char_p
     return lib
@@ -314,6 +324,39 @@ def _raise_on(rc: int, what: str) -> None:
                            f"CUDA error {rc} ({msg})")
 
 
+def _launch_block(counter, x: torch.Tensor, x_nhwc: torch.Tensor,
+                  weights: Sequence[torch.Tensor],
+                  biases: Sequence[torch.Tensor], res_scale: float,
+                  slope: float, nhwc: bool):
+    """The five launches of one block on the card, each counted in
+    ``counter.launches``: (y in x's layout, feature buffer)."""
+    lib = _lib()
+    b, h, w, c = x_nhwc.shape
+    growth = weights[0].shape[1]
+    c_total = c + (N_CONVS - 1) * growth
+    with torch.cuda.device(x.device):
+        # channels-last feature buffer: x, then each conv's output slice
+        buf = torch.empty((b, h, w, c_total), dtype=x.dtype, device=x.device)
+        buf[..., :c].copy_(x_nhwc)
+        y = torch.empty_like(x)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        cin = c
+        for k in range(N_CONVS):
+            last = k == N_CONVS - 1
+            cout = weights[k].shape[1]
+            out = y.data_ptr() if last else \
+                buf.data_ptr() + cin * buf.element_size()
+            rc = lib.dense_block_conv(
+                int(x.dtype == torch.bfloat16), buf.data_ptr(), c_total,
+                cin, weights[k].data_ptr(), biases[k].data_ptr(), cout, out,
+                x.data_ptr(), b, h, w, float(slope), float(res_scale),
+                int(last), int(nhwc), stream)
+            _raise_on(rc, f"conv{k + 1}")
+            counter.launches += 1
+            cin += cout
+    return y, buf
+
+
 def dense_block(x: torch.Tensor, weights: Sequence[torch.Tensor],
                 biases: Sequence[torch.Tensor], *, res_scale: float,
                 slope: float, save_acts: bool = False):
@@ -327,34 +370,44 @@ def dense_block(x: torch.Tensor, weights: Sequence[torch.Tensor],
                              slope=slope, save_acts=save_acts)
     if x.device.type != "cuda":
         raise ValueError(f"dense_block runs on cuda or cpu, not {x.device}")
-    lib = _lib()
-    b, c, h, w = x.shape
-    growth = weights[0].shape[1]
-    c_total = c + (N_CONVS - 1) * growth
-    with torch.cuda.device(x.device):
-        # channels-last feature buffer: x, then each conv's output slice
-        buf = torch.empty((b, h, w, c_total), dtype=x.dtype, device=x.device)
-        buf[..., :c].copy_(x.permute(0, 2, 3, 1))
-        y = torch.empty_like(x)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        cin = c
-        for k in range(N_CONVS):
-            last = k == N_CONVS - 1
-            cout = weights[k].shape[1]
-            out = y.data_ptr() if last else \
-                buf.data_ptr() + cin * buf.element_size()
-            rc = lib.dense_block_conv(
-                int(x.dtype == torch.bfloat16), buf.data_ptr(), c_total,
-                cin, weights[k].data_ptr(), biases[k].data_ptr(), cout, out,
-                x.data_ptr(), b, h, w, float(slope), float(res_scale),
-                int(last), stream)
-            _raise_on(rc, f"conv{k + 1}")
-            dense_block.launches += 1
-            cin += cout
+    y, buf = _launch_block(dense_block, x, x.permute(0, 2, 3, 1), weights,
+                           biases, res_scale, slope, nhwc=False)
     return (y, buf) if save_acts else y
 
 
 dense_block.launches = 0
+
+
+def fused_dense_block_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                            biases: Sequence[torch.Tensor], *,
+                            res_scale: float, slope: float) -> torch.Tensor:
+    """The plain version of :func:`fused_dense_block`: NHWC in and out,
+    :func:`dense_block_plain` in between (the same rounding points)."""
+    y = dense_block_plain(x.permute(0, 3, 1, 2).contiguous(), weights,
+                          biases, res_scale=res_scale, slope=slope)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
+def fused_dense_block(x: torch.Tensor, weights: Sequence[torch.Tensor],
+                      biases: Sequence[torch.Tensor], *, res_scale: float,
+                      slope: float) -> torch.Tensor:
+    """One dense block on NHWC ``x`` with packed weights, y NHWC: the
+    NHWC entry of the forward kernel (counted in
+    ``fused_dense_block.launches``) on CUDA tensors, its plain version
+    on CPU tensors.  Every H and W, forward only."""
+    _check(x, weights, biases, "NHWC")
+    if x.device.type == "cpu":
+        return fused_dense_block_plain(x, weights, biases,
+                                       res_scale=res_scale, slope=slope)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_dense_block runs on cuda or cpu, not "
+                         f"{x.device}")
+    y, _ = _launch_block(fused_dense_block, x, x, weights, biases,
+                         res_scale, slope, nhwc=True)
+    return y
+
+
+fused_dense_block.launches = 0
 
 
 def wgrad_parts(n_pixels_tiles: int, cin: int, is_bf16: bool) -> int:

@@ -43,6 +43,7 @@ from super_resolution_tpu_torch.train.steps import (
     make_gan_step,
     make_infer_fn,
     make_pretrain_step,
+    training_cfg,
 )
 
 
@@ -131,6 +132,7 @@ def train(cfg: TrainConfig,
             "in-loop eval (eval_dir) is not ported yet (ROADMAP.md): it "
             "needs train/evaluate.py")
     device = resolve_device(device)
+    cfg = training_cfg(cfg)
     total_steps = total_steps if total_steps is not None \
         else cfg.n_epochs * cfg.steps_per_epoch
 

@@ -19,11 +19,12 @@ pretrain step, the alternating G/D GAN step and the inference forward.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict
 
 import torch
 
-from super_resolution_tpu_torch.config import TrainConfig
+from super_resolution_tpu_torch.config import TrainConfig, resolve_conv_impl
 from super_resolution_tpu_torch.data.augment import (
     denormalize,
     preprocess_batch,
@@ -49,6 +50,24 @@ from super_resolution_tpu_torch.train.state import (
 
 Metrics = Dict[str, torch.Tensor]
 StepFn = Callable[[GANTrainState, torch.Tensor], Metrics]
+
+
+def training_cfg(cfg: TrainConfig) -> TrainConfig:
+    """The config training differentiates through, after the JAX
+    package's ``train/steps.py:_training_cfg``: ``auto`` resolved to
+    ``pallas_cf``; ``pallas_cf`` and ``pallas_cf_tail`` train as they are
+    (their kernels take every geometry, so nothing falls back);
+    ``pallas`` and ``pallas_fused`` have no backward, which the JAX
+    package trains on ``lax`` and the port, without ``lax``, on
+    ``pallas_cf``, saying so in one line.  The parameters are the same
+    under every impl, so checkpoints swap freely."""
+    impl = resolve_conv_impl(cfg.generator.conv_impl)
+    if impl in ("pallas", "pallas_fused"):
+        print(f"[train] conv_impl={impl!r} has no backward: training on "
+              f"'pallas_cf' (the same parameters)", flush=True)
+        impl = "pallas_cf"
+    return dataclasses.replace(
+        cfg, generator=dataclasses.replace(cfg.generator, conv_impl=impl))
 
 
 def _psnr01(cfg: TrainConfig, sr: torch.Tensor, hr: torch.Tensor):

@@ -182,7 +182,7 @@ def test_default_device_is_the_card(pth, tmp_path):
 
 @pytest.mark.parametrize("argv,err", [
     (["--data_parallel", "2"], NotImplementedError),
-    (["--conv_impl", "pallas_cf"], NotImplementedError),
+    (["--conv_impl", "lax"], NotImplementedError),
 ], ids=["data_parallel", "conv_impl"])
 def test_unported_options_raise(pth, tmp_path, argv, err):
     src = _save(tmp_path, "lr.png", _frame(8, 8, 8))

@@ -1,7 +1,8 @@
 """Tests of the port that need the card: the dense-block CUDA kernels,
-forward and backward, against their plain versions, their launch counts
-and input checks, and the generator, a training step and the CLI on
-CUDA.  Marked ``cuda``; each skips where torch sees
+forward (NCHW and NHWC entries) and backward, and the single-conv
+kernel, against their plain versions, their launch counts and input
+checks, and the generator under every conv impl, a training step and
+the CLI on CUDA.  Marked ``cuda``; each skips where torch sees
 no CUDA device.  On a machine with a card (no JAX needed there):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -30,6 +31,12 @@ from PIL import Image
 from super_resolution_tpu_torch.cli import main
 from super_resolution_tpu_torch.config import GeneratorConfig
 from super_resolution_tpu_torch.models import rrdb
+from super_resolution_tpu_torch.ops.conv3x3 import (
+    conv3x3,
+    conv3x3_cf,
+    conv3x3_cf_train,
+    conv3x3_plain,
+)
 from super_resolution_tpu_torch.ops.dense_block import (
     BWD_LAUNCHES_PER_BLOCK,
     LAUNCHES_PER_BLOCK,
@@ -37,6 +44,8 @@ from super_resolution_tpu_torch.ops.dense_block import (
     dense_block_bwd,
     dense_block_plain,
     dense_block_train,
+    fused_dense_block,
+    fused_dense_block_plain,
     pack_weight,
     plain_backward,
     plain_forward,
@@ -46,6 +55,7 @@ pytestmark = pytest.mark.cuda
 
 # the module: the package's ``ops`` exports a function of the same name
 db_ops = importlib.import_module("super_resolution_tpu_torch.ops.dense_block")
+c3_ops = importlib.import_module("super_resolution_tpu_torch.ops.conv3x3")
 
 TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (2.0 ** -6, 2.0 ** -6)}
 
@@ -279,3 +289,148 @@ def test_cli_on_the_card_matches_the_cpu(cuda, tmp_path):
     assert got.shape == ref.shape == (160, 208, 3)
     assert np.abs(got - ref).max() <= 1
     assert os.path.getsize(outs["cuda"]) > 0
+
+
+def _conv(shape, cout, dtype, device, seed=0):
+    """NHWC x, packed weights, f32 bias of one conv on the card."""
+    gen = torch.Generator().manual_seed(seed)
+    cin = shape[-1]
+    x = torch.randn(shape, generator=gen).to(device, dtype)
+    w = torch.randn(cout, cin, 3, 3, generator=gen) \
+        * math.sqrt(2.0 / (9 * cin))
+    b = (torch.randn(cout, generator=gen) * 0.1).to(device)
+    return x, pack_weight(w).to(device, dtype), b
+
+
+@pytest.mark.parametrize("shape,cout,dtype,act,out_dtype", [
+    ((2, 40, 52, 64), 64, torch.bfloat16, True, None),     # tail conv
+    ((2, 24, 40, 64), 3, torch.bfloat16, False, None),     # conv_last
+    ((2, 24, 40, 3), 64, torch.bfloat16, False, None),     # conv_first
+    ((1, 20, 36, 64), 256, torch.bfloat16, True, None),    # pixelshuffle up
+    ((1, 37, 53, 64), 64, torch.float32, True, None),      # odd, fp32
+    ((2, 19, 21, 3), 64, torch.float32, False, None),      # fp32 cin 3
+    ((1, 37, 53, 64), 3, torch.float32, False, None),      # fp32 cout 3
+    ((1, 18, 30, 32), 16, torch.bfloat16, True, torch.float32),
+])
+def test_conv3x3_kernel_matches_plain(cuda, shape, cout, dtype, act,
+                                      out_dtype):
+    x, w, b = _conv(shape, cout, dtype, cuda)
+    before = conv3x3.launches
+    y = conv3x3(x, w, b, act=act, slope=0.2, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert conv3x3.launches == before + 1
+    ref = conv3x3_plain(x, w, b, act=act, slope=0.2, out_dtype=out_dtype)
+    assert y.shape == ref.shape == (*shape[:3], cout)
+    assert y.dtype == ref.dtype
+    # one rounding of the same f32 sum: bf16 one ULP, f32 summation order
+    atol, rtol = ((2e-5, 1e-5) if y.dtype == torch.float32
+                  else (2.0 ** -8, 2.0 ** -7))
+    torch.testing.assert_close(y.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_conv3x3_reads_a_prefix_and_writes_a_slice(cuda, dtype):
+    """A dense-block conv under conv_impl='pallas': the channel prefix of
+    one channels-last buffer in, the next channel slice of it out."""
+    buf = torch.randn(2, 24, 40, 96, generator=torch.Generator()
+                      .manual_seed(1)).to(cuda, dtype)
+    _, w, b = _conv((1, 1, 1, 64), 32, dtype, cuda, seed=2)
+    want = conv3x3_plain(buf[..., :64], w, b, act=False, slope=0.2)
+    keep = buf.clone()
+    got = conv3x3(buf[..., :64], w, b, act=False, slope=0.2,
+                  out=buf[..., 64:])
+    torch.cuda.synchronize()
+    assert got.data_ptr() == buf.data_ptr() + 64 * buf.element_size()
+    assert torch.equal(buf[..., :64], keep[..., :64])
+    atol = 2e-5 if dtype == torch.float32 else 2.0 ** -8
+    torch.testing.assert_close(buf[..., 64:].float(), want.float(),
+                               atol=atol, rtol=2.0 ** -7)
+
+
+def test_conv3x3_cf_converts_only_contiguous_nchw(cuda):
+    x, w, b = _conv((2, 20, 28, 64), 64, torch.bfloat16, cuda)
+    nchw = x.permute(0, 3, 1, 2)                 # channels-last storage
+    conv0 = conv3x3_cf.conversions
+    y = conv3x3_cf(nchw, w, b, act=True)
+    assert conv3x3_cf.conversions == conv0
+    y2 = conv3x3_cf(nchw.contiguous(), w, b, act=True)
+    assert conv3x3_cf.conversions == conv0 + 1
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(y, y2)
+    ref = conv3x3_plain(x, w, b, act=True, slope=0.2).permute(0, 3, 1, 2)
+    torch.testing.assert_close(y.float(), ref.float(), atol=2.0 ** -8,
+                               rtol=2.0 ** -7)
+
+
+def test_conv3x3_cf_train_grads_match_the_cpu(cuda):
+    """The training conv on the card against the same Function on the CPU
+    (plain forward, PyTorch's convolution backward), float32."""
+    x, w, b = _conv((2, 18, 22, 16), 32, torch.float32, "cpu", seed=3)
+    nchw = x.permute(0, 3, 1, 2).contiguous()
+    g = torch.randn(2, 32, 18, 22, generator=torch.Generator().manual_seed(4))
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_(True) for t in (nchw, w, b)]
+        before = conv3x3.launches
+        y = conv3x3_cf_train(*leaves, act=True, slope=0.2)
+        assert conv3x3.launches - before == (dev != "cpu")
+        grads[str(dev)] = [t.cpu() for t in
+                           torch.autograd.grad(y, leaves, g.to(dev))]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert _rel(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("shape,growth,dtype", [
+    ((2, 32, 48, 64), 32, torch.bfloat16),
+    ((1, 37, 53, 64), 32, torch.float32),
+    ((3, 9, 70, 16), 8, torch.bfloat16),
+])
+def test_nhwc_entry_matches_plain(cuda, shape, growth, dtype):
+    x, ws, bs = _block((shape[0], shape[3], shape[1], shape[2]), growth,
+                       dtype, cuda)
+    x = x.permute(0, 2, 3, 1).contiguous()
+    nchw0, nhwc0 = dense_block.launches, fused_dense_block.launches
+    y = fused_dense_block(x, ws, bs, res_scale=0.2, slope=0.2)
+    torch.cuda.synchronize()
+    assert fused_dense_block.launches == nhwc0 + LAUNCHES_PER_BLOCK
+    assert dense_block.launches == nchw0
+    ref = fused_dense_block_plain(x, ws, bs, res_scale=0.2, slope=0.2)
+    assert y.shape == ref.shape == x.shape and y.is_contiguous()
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(y.float(), ref.float(), atol=atol, rtol=rtol)
+    # the NCHW entry gives the same numbers
+    y_cf = dense_block(x.permute(0, 3, 1, 2).contiguous(), ws, bs,
+                       res_scale=0.2, slope=0.2)
+    assert torch.equal(y, y_cf.permute(0, 2, 3, 1))
+
+
+def _through_plain(monkeypatch):
+    monkeypatch.setattr(rrdb, "dense_block", dense_block_plain)
+    monkeypatch.setattr(rrdb, "fused_dense_block", fused_dense_block_plain)
+    monkeypatch.setattr(c3_ops, "conv3x3", conv3x3_plain)
+
+
+@pytest.mark.parametrize("impl,upsampler", [
+    ("pallas_cf_tail", "nearest_conv"), ("pallas_cf_tail", "pixelshuffle"),
+    ("pallas", "nearest_conv"), ("pallas_fused", "nearest_conv")])
+def test_generator_impls_match_plain_forward(cuda, monkeypatch, impl,
+                                             upsampler):
+    cfg = GeneratorConfig(n_blocks=2, filters=32, growth=16, conv_impl=impl,
+                          upsampler=upsampler, init="torch_default")
+    model = rrdb.RRDBNet(cfg, torch.Generator().manual_seed(1)).to(cuda)
+    model.prepare(torch.float32)
+    x = torch.randn(2, 24, 40, 3, generator=torch.Generator()
+                    .manual_seed(2)).to(cuda)
+    n_blocks = cfg.n_blocks * cfg.n_dense
+    counters = (dense_block, fused_dense_block, conv3x3)
+    with torch.inference_mode():
+        before = [f.launches for f in counters]
+        got = model(x)
+        counts = [f.launches - b for f, b in zip(counters, before)]
+        _through_plain(monkeypatch)
+        ref = model(x)
+    want = {"pallas_cf_tail": [n_blocks * LAUNCHES_PER_BLOCK, 0, 4],
+            "pallas": [0, 0, n_blocks * LAUNCHES_PER_BLOCK + 6],
+            "pallas_fused": [0, n_blocks * LAUNCHES_PER_BLOCK, 0]}[impl]
+    assert counts == want
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)

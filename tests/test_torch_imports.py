@@ -42,6 +42,7 @@ def test_port_has_the_files_it_should():
                  "super_resolution_tpu_torch/serve.py",
                  "super_resolution_tpu_torch/models/rrdb.py",
                  "super_resolution_tpu_torch/ops/dense_block.py",
+                 "super_resolution_tpu_torch/ops/conv3x3.py",
                  "super_resolution_tpu_torch/parallel/tiling.py",
                  "super_resolution_tpu_torch/import_torch.py",
                  "super_resolution_tpu_torch/checkpoint.py",
@@ -54,7 +55,7 @@ def test_port_has_the_files_it_should():
                  "super_resolution_tpu_torch/train/steps.py",
                  "super_resolution_tpu_torch/train/loop.py"):
         assert want in rel
-    for source in ("dense_block.cu", "dense_block_bwd.cu",
+    for source in ("dense_block.cu", "dense_block_bwd.cu", "conv3x3.cu",
                    "conv3x3_tile.cuh"):
         assert os.path.isfile(os.path.join(
             ROOT, "super_resolution_tpu_torch", "csrc", source))
