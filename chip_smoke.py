@@ -58,11 +58,34 @@ and prints no result line:
    plain PSNR floor, ms per batch and MP/s, the device profile; then
    ``cli upscale --conv_impl X`` of the serve phase's frame: launches
    per tile batch, alpha kept, PSNR against the default impl's frame.
+   ``lax`` (cuDNN, no kernel of the port) runs there too: 0 own-kernel
+   launches, its frame against the default impl's, and one warmup and
+   one GAN step of ``cli train --conv_impl pallas``, which trains on
+   ``lax`` and says so.
 9. train-tail: ``cli train --preset train_gan_dfm --conv_impl
    pallas_cf_tail``, two warmup and two GAN steps at full width: the
    dense-block and tail launches of every generator update, finite
    metrics.
-10. the ``kernels`` JSON line, the card's name and power limit as
+10. kernel-experiments: the experiment variants v3, v3b, v4 (with and
+   without ``save_acts``) and v6, routed to the dense-block kernel, at
+   (8, 64, 128, 128) bf16 with their default band heights and at an odd
+   fp32 shape: five launches per call on each wrapper's counter, the
+   plain version within the forward tolerances, wrapper ms (weight
+   packing included), the bound and cuDNN's time.
+11. kernel-int8: the int8 kernel of v8 at (8, 64, 128, 128) bf16, rows
+   16 and 32, and at an fp32 shape of growth 8: against its plain
+   version within one ULP of x's dtype (the share of differing values
+   printed), within 0.02 of the largest |y| of the bf16 dense-block
+   kernel, rows 16 and 32 giving other values (band-local scales), ten
+   launches per call, ms in turns with plain and the kernels' device
+   time alone (``torch.profiler``), the int8 bound.
+12. tools: ``python -m super_resolution_tpu_torch.tools.kernel_bench
+   --variants lax,v3,v3b,v4,v5,v6,v8,v9`` and ``tools.model_bench`` over
+   every variant (``--iters 3``) as subprocesses on the card: a time for
+   every variant, no ``FAILED``, and per model forward 345 dense-block
+   launches on each variant's own counter (+4 tail launches under
+   ``ktail``), none under ``lax``.
+13. the ``kernels`` JSON line, the card's name and power limit as
    nvidia-smi prints them, then the ``ok`` JSON line last.
 
 It needs a CUDA card and the repository around it; without either it
@@ -80,7 +103,8 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # H100 SXM, dense
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,   # H100 SXM, dense
+              "int8": 1979e12}
 PEAK_BYTES = 3.35e12                                  # HBM3, bytes/s
 # kernel vs plain, elementwise |k - p| <= atol + rtol*|p|.  bf16: about
 # two bf16 ULPs — each conv output is rounded to bf16, and an f32 sum in
@@ -154,6 +178,16 @@ CONV_TOL = {"bfloat16": (2.0 ** -8, 2.0 ** -7), "float32": (2e-5, 1e-5)}
 # on an NVIDIA H100 80GB HBM3, 700 W); a fault at a tile, a channel or a
 # stride moves whole regions of the frame, far below the floor.
 CLI_IMPL_PSNR_FLOOR_DB = 35.0
+REPLACES_EXPERIMENTS = (
+    "super_resolution_tpu/ops/pallas/experiments_dense_block.py:122 "
+    "fused_dense_block_cf; :262 fused_dense_block_cf2; :379 "
+    "fused_dense_block_cf3; :521 fused_dense_block_cf6")
+REPLACES_INT8 = ("super_resolution_tpu/ops/pallas/experiments_dense_block.py"
+                 ":668 fused_dense_block_cf8")
+# the int8 block against the bf16 dense-block kernel, max |delta| over
+# the largest |y|: tests/test_pallas.py's class for v8 (measured 0.0065
+# on the CPU at (1, 64, 32, 128) with these weights)
+INT8_CLASS_REL = 0.02
 
 
 def fail(msg: str) -> None:
@@ -214,9 +248,23 @@ def make_block(shape, growth, dtype, seed):
     return x, ws, ws_oihw, bs
 
 
-def kernel_phase():
+def cudnn_block(x, ws_oihw, bs, slope=0.2):
+    """Five cuDNN convs + torch.cat in the working dtype: the library
+    yardstick of a dense block, never called by the port."""
     import torch
     import torch.nn.functional as F
+
+    feats = x
+    bias = [bk.to(x.dtype) for bk in bs]
+    for k in range(4):
+        o = F.leaky_relu(F.conv2d(feats, ws_oihw[k], bias[k], padding=1),
+                         slope)
+        feats = torch.cat([feats, o], 1)
+    return x + 0.2 * F.conv2d(feats, ws_oihw[4], bias[4], padding=1)
+
+
+def kernel_phase():
+    import torch
 
     from super_resolution_tpu_torch.device import no_tf32
     from super_resolution_tpu_torch.ops.dense_block import (
@@ -249,15 +297,7 @@ def kernel_phase():
             return dense_block_plain(x, ws, bs, **kw)
 
         def library():
-            # five cuDNN convs + torch.cat in the working dtype: a
-            # yardstick of speed only, never called by the port
-            feats = x
-            bias = [bk.to(dtype) for bk in bs]
-            for k in range(4):
-                o = F.leaky_relu(F.conv2d(feats, ws_oihw[k], bias[k],
-                                          padding=1), slope)
-                feats = torch.cat([feats, o], 1)
-            return x + 0.2 * F.conv2d(feats, ws_oihw[4], bias[4], padding=1)
+            return cudnn_block(x, ws_oihw, bs, slope)
 
         with torch.inference_mode(), no_tf32():
             y = kernel()
@@ -527,7 +567,8 @@ def forward_flops(gcfg, b, h, w):
 
 
 # names of the port's own kernels in a profile (csrc/*.cu)
-OWN_KERNELS = ("conv3x3_", "dgrad3x3", "wgrad3x3", "wgrad_reduce")
+OWN_KERNELS = ("conv3x3_", "dgrad3x3", "wgrad3x3", "wgrad_reduce",
+               "conv_int8", "amax_kernel")
 
 
 def device_times(fn):
@@ -734,9 +775,15 @@ def launch_counters():
 
     db = importlib.import_module("super_resolution_tpu_torch.ops.dense_block")
     c3 = importlib.import_module("super_resolution_tpu_torch.ops.conv3x3")
+    ex = importlib.import_module(
+        "super_resolution_tpu_torch.ops.experiments_dense_block")
     return {"dense_block": db.dense_block, "dense_block_bwd":
             db.dense_block_bwd, "dense_block_nhwc": db.fused_dense_block,
-            "conv3x3": c3.conv3x3}
+            "conv3x3": c3.conv3x3,
+            **{f.__name__: f for f in (
+                ex.fused_dense_block_cf, ex.fused_dense_block_cf2,
+                ex.fused_dense_block_cf3, ex.fused_dense_block_cf6,
+                ex.fused_dense_block_cf8)}}
 
 
 def cli_train_recorded(argv):
@@ -1141,7 +1188,6 @@ def conv3x3_phase():
 def fused_phase():
     """The NHWC dense-block entry against its plain version."""
     import torch
-    import torch.nn.functional as F
 
     from super_resolution_tpu_torch.device import no_tf32
     from super_resolution_tpu_torch.ops.dense_block import (
@@ -1157,22 +1203,11 @@ def fused_phase():
         x, ws, ws_oihw, bs = make_block(shape, 32, dtype, 400 + len(results))
         x = x.permute(0, 2, 3, 1).contiguous()           # NHWC
         x_cl = x.permute(0, 3, 1, 2)
-        bias = [bk.to(dtype) for bk in bs]
         kw = dict(res_scale=0.2, slope=0.2)
-
-        def library():
-            # five cuDNN convs on the channels-last view + torch.cat
-            feats = x_cl
-            for k in range(4):
-                o = F.leaky_relu(F.conv2d(feats, ws_oihw[k], bias[k],
-                                          padding=1), 0.2)
-                feats = torch.cat([feats, o], 1)
-            return x_cl + 0.2 * F.conv2d(feats, ws_oihw[4], bias[4],
-                                         padding=1)
-
         fns = {"kernel": lambda: fused_dense_block(x, ws, bs, **kw),
                "plain": lambda: fused_dense_block_plain(x, ws, bs, **kw),
-               "library": library}
+               # on the channels-last view
+               "library": lambda: cudnn_block(x_cl, ws_oihw, bs)}
         with torch.inference_mode(), no_tf32():
             y = fns["kernel"]()
             torch.cuda.synchronize()
@@ -1205,7 +1240,8 @@ def per_forward_launches(impl, gcfg):
     tail = 2 + gcfg.n_upsample              # conv_body, upconvs, conv_hr
     return {"pallas_cf_tail": dict(dense_block=n, conv3x3=tail),
             "pallas": dict(conv3x3=n + tail + 2),   # + conv_first, conv_last
-            "pallas_fused": dict(dense_block_nhwc=n)}[impl]
+            "pallas_fused": dict(dense_block_nhwc=n),
+            "lax": {}}[impl]                        # cuDNN only
 
 
 class PlainKernels:
@@ -1234,13 +1270,14 @@ class PlainKernels:
          self.c3.conv3x3) = self.orig
 
 
-IMPLS = ("pallas_cf_tail", "pallas", "pallas_fused")
+IMPLS = ("pallas_cf_tail", "pallas", "pallas_fused", "lax")
 
 
 def impls_phase(frame):
-    """The flagship forward under each of the three further conv impls,
+    """The flagship forward under each of the four further conv impls,
     then ``cli upscale --conv_impl X`` of the serve phase's frame
-    (``frame``: its RGBA pixels, checkpoint and default-impl upscale)."""
+    (``frame``: its RGBA pixels, checkpoint and default-impl upscale).
+    Under ``lax`` the plain reference is the same cuDNN forward."""
     import numpy as np
     import torch
     from PIL import Image
@@ -1383,6 +1420,309 @@ def tail_train_phase():
                 gan_step_ms=records[-1]["ms"], warmup_step_ms=records[1]["ms"])
 
 
+def hwio_block(shape, growth, dtype, seed):
+    """``make_block``'s block with HWIO weights (the experiment kernels'
+    contract): x, HWIO weights, packed weights and biases on the card."""
+    x, ws, ws_oihw, bs = make_block(shape, growth, dtype, seed)
+    return x, [w.permute(2, 3, 1, 0) for w in ws_oihw], ws, ws_oihw, bs
+
+
+def experiments_phase():
+    """v3, v3b, v4 and v6: the dense-block kernel behind their own
+    contracts."""
+    import torch
+
+    from super_resolution_tpu_torch.device import no_tf32
+    from super_resolution_tpu_torch.ops import experiments_dense_block as ex
+    from super_resolution_tpu_torch.ops.dense_block import (
+        LAUNCHES_PER_BLOCK,
+        dense_block,
+    )
+
+    cases = [  # name, wrapper, kwargs, (B, C, H, W), dtype
+        ("cf_flagship", "fused_dense_block_cf", {}, (8, 64, 128, 128),
+         "bfloat16"),
+        ("cf2_flagship", "fused_dense_block_cf2", {}, (8, 64, 128, 128),
+         "bfloat16"),
+        ("cf3_flagship", "fused_dense_block_cf3", {}, (8, 64, 128, 128),
+         "bfloat16"),
+        ("cf3_save_acts", "fused_dense_block_cf3", {"save_acts": True},
+         (8, 64, 128, 128), "bfloat16"),
+        ("cf6_flagship", "fused_dense_block_cf6", {}, (8, 64, 128, 128),
+         "bfloat16"),
+        ("cf6_odd_fp32", "fused_dense_block_cf6", {"rows": 8},
+         (1, 64, 40, 53), "float32"),
+        ("cf_odd_fp32", "fused_dense_block_cf", {"rows": 8},
+         (1, 64, 40, 53), "float32"),
+    ]
+    results = {}
+    for name, wrapper, kw, shape, dtype_name in cases:
+        fn = getattr(ex, wrapper)
+        dtype = getattr(torch, dtype_name)
+        x, ws, _, ws_oihw, bs = hwio_block(shape, 32, dtype,
+                                           500 + len(results))
+        with torch.inference_mode(), no_tf32():
+            before = (fn.launches, dense_block.launches)
+            out = fn(x, ws, bs, **kw)
+            torch.cuda.synchronize()
+            per_call = fn.launches - before[0]
+            stray = dense_block.launches - before[1]
+            plain_kw = dict(kw, rows=kw.get("rows", 16 if "cf3" not in
+                                            wrapper else 32))
+            ref = ex.dense_block_plain(
+                x, *ex._packed(x, ws, bs), res_scale=0.2, slope=0.2,
+                save_acts=kw.get("save_acts", False))
+            ys = [out[0], *out[1]] if kw.get("save_acts") else [out]
+            refs = [ref[0], *ref[1]] if kw.get("save_acts") else [ref]
+            atol, rtol = TOL[dtype_name]
+            max_err, ok = 0.0, True
+            for y, r in zip(ys, refs):
+                diff = (y.float() - r.float()).abs()
+                max_err = max(max_err, diff.max().item())
+                ok = ok and y.shape == r.shape and bool(
+                    torch.isfinite(y.float()).all()) and \
+                    (diff - rtol * r.float().abs()).max().item() <= atol
+            ms = turns({"plain": lambda: ex.dense_block_plain(
+                            x, *ex._packed(x, ws, bs), res_scale=0.2,
+                            slope=0.2),
+                        "kernel": lambda: fn(x, ws, bs, **kw),
+                        "library": lambda: cudnn_block(x, ws_oihw, bs)},
+                       20)
+        bound_ms, bound_by, flops, nbytes = block_bound(shape, 32,
+                                                        dtype_name)
+        results[name] = dict(
+            wrapper=wrapper, rows=plain_kw["rows"], shape=list(shape),
+            dtype=dtype_name, launches_per_call=per_call,
+            max_abs_err=max_err, atol=atol, rtol=rtol, ok=ok,
+            kernel_ms=ms["kernel"], plain_ms=ms["plain"],
+            library_ms=ms["library"], bound_ms=bound_ms, bound_by=bound_by,
+            roofline_share=bound_ms / ms["kernel"])
+        print("[kernel-experiments] " + json.dumps({name: results[name]}),
+              flush=True)
+        if per_call != LAUNCHES_PER_BLOCK or stray:
+            fail(f"{name}: one call made {per_call} launches on "
+                 f"{wrapper}.launches and {stray} on dense_block.launches")
+        if not ok:
+            fail(f"{name}: {wrapper} disagrees with the plain block (max "
+                 f"|err| {max_err})")
+    return results
+
+
+def int8_bound(shape, growth, rows, dtype_name):
+    """(bound_ms, bound_by, ops, bytes) of the int8 block: every band's
+    convs over its own window rows (the halo recompute counted) at the
+    int8 peak, against x read and y written once."""
+    b, c, h, w = shape
+    macs, cin = 0, c
+    for k in range(5):
+        cout = c if k == 4 else growth
+        out_rows = rows + 2 * (5 - k - 1)
+        macs += out_rows * cin * cout * 9
+        cin += growth
+    ops = 2 * macs * w * b * (h // rows)
+    nbytes = 2 * b * c * h * w * (2 if dtype_name == "bfloat16" else 4)
+    t_ops, t_bytes = ops / PEAK_FLOPS["int8"], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+
+
+def int8_phase():
+    """v8: the int8 kernel against its plain version and against the
+    bf16 dense-block kernel."""
+    import torch
+
+    from super_resolution_tpu_torch.device import no_tf32
+    from super_resolution_tpu_torch.ops import experiments_dense_block as ex
+    from super_resolution_tpu_torch.ops.dense_block import dense_block
+
+    fn = ex.fused_dense_block_cf8
+    cases = [("flagship_rows16", (8, 64, 128, 128), 32, "bfloat16", 16),
+             ("flagship_rows32", (8, 64, 128, 128), 32, "bfloat16", 32),
+             ("fp32_growth8", (2, 16, 48, 40), 8, "float32", 8)]
+    results, outs = {}, {}
+    for name, shape, growth, dtype_name, rows in cases:
+        dtype = getattr(torch, dtype_name)
+        x, ws, wp, ws_oihw, bs = hwio_block(shape, growth, dtype, 600)
+        with torch.inference_mode(), no_tf32():
+            before = fn.launches
+            y = fn(x, ws, bs, rows=rows)
+            torch.cuda.synchronize()
+            per_call = fn.launches - before
+            ref = ex.fused_dense_block_cf8_plain(x, ws, bs, rows=rows)
+            diff = (y.float() - ref.float()).abs()
+            ulp = 2.0 ** -7 if dtype_name == "bfloat16" else 2.0 ** -23
+            within_ulp = bool((diff <= ulp * ref.float().abs()).all())
+            finite = bool(torch.isfinite(y.float()).all())
+            block = dense_block(x, wp, bs, res_scale=0.2, slope=0.2).float()
+            class_rel = ((y.float() - block).abs().max()
+                         / block.abs().max()).item()
+            ms = turns({"plain": lambda: ex.fused_dense_block_cf8_plain(
+                            x, ws, bs, rows=rows),
+                        "kernel": lambda: fn(x, ws, bs, rows=rows),
+                        "library": lambda: cudnn_block(x, ws_oihw, bs)},
+                       10)
+            # the wrapper's time includes its eager glue (weight
+            # quantization, the banded copy of x); the kernels alone:
+            dev_ms = own_device_ms(lambda: fn(x, ws, bs, rows=rows))
+        outs[name] = y
+        bound_ms, bound_by, ops, nbytes = int8_bound(shape, growth, rows,
+                                                     dtype_name)
+        results[name] = dict(
+            shape=list(shape), growth=growth, rows=rows, dtype=dtype_name,
+            launches_per_call=per_call, max_abs_err=diff.max().item(),
+            share_differing=(diff > 0).float().mean().item(),
+            within_one_ulp=within_ulp, rel_to_bf16_block=class_rel,
+            kernel_ms=ms["kernel"], kernels_device_ms=dev_ms,
+            plain_ms=ms["plain"], library_ms=None,
+            cudnn_block_ms=ms["library"],
+            bound_ms=bound_ms, bound_by=bound_by, ops=ops, bytes=nbytes,
+            roofline_share=bound_ms / ms["kernel"],
+            tops=ops / (ms["kernel"] * 1e-3) / 1e12)
+        print("[kernel-int8] " + json.dumps({name: results[name]}),
+              flush=True)
+        if per_call != ex.INT8_LAUNCHES_PER_CALL:
+            fail(f"int8 {name}: one call made {per_call} launches")
+        if not (finite and within_ulp and y.shape == ref.shape):
+            fail(f"int8 {name}: kernel differs from its plain version by "
+                 f"more than one ULP of {dtype_name} (max |err| "
+                 f"{diff.max().item()})")
+        if not class_rel < INT8_CLASS_REL:
+            fail(f"int8 {name}: {class_rel} of the largest |y| from the "
+                 f"bf16 dense-block kernel (class {INT8_CLASS_REL})")
+    differ = (outs["flagship_rows16"] != outs["flagship_rows32"]).float() \
+        .mean().item()
+    print(f"[kernel-int8] rows 16 against rows 32 at (8, 64, 128, 128): "
+          f"{differ:.4f} of the values differ (band-local scales)",
+          flush=True)
+    if not differ > 0:
+        fail("the int8 block gave the same values at rows 16 and 32: its "
+             "scales are not band-local")
+    results["rows16_vs_rows32_share_differing"] = differ
+    return results
+
+
+def run_tool(name, argv, timeout):
+    """``python -m super_resolution_tpu_torch.tools.<name> argv`` on the
+    card, from the repository root; its standard output."""
+    proc = subprocess.run(
+        [sys.executable, "-m", f"super_resolution_tpu_torch.tools.{name}",
+         *argv], cwd=HERE, capture_output=True, text=True, timeout=timeout)
+    for line in proc.stdout.splitlines():
+        print(f"[tools] {name}: {line}", flush=True)
+    if proc.returncode != 0:
+        fail(f"tools.{name} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    if "FAILED" in proc.stdout:
+        fail(f"tools.{name} printed FAILED")
+    return proc.stdout
+
+
+MODEL_VARIANTS = ["lax", "prod"] + [f"{b}+{t}" for b in ("v4", "v5", "v6",
+                                                         "v9")
+                                    for t in ("laxtail", "ktail")]
+BLOCK_COUNTER = {"v4": "fused_dense_block_cf3", "v5": "dense_block",
+                 "v6": "fused_dense_block_cf6", "v9": "dense_block"}
+
+
+def tools_phase():
+    """The three tools' main path: kernel_bench over every block variant
+    and model_bench over every model variant, as subprocesses."""
+    import re
+
+    from super_resolution_tpu_torch.ops.dense_block import LAUNCHES_PER_BLOCK
+    from super_resolution_tpu_torch.config import GeneratorConfig
+
+    gcfg = GeneratorConfig()
+    per_forward = gcfg.n_blocks * gcfg.n_dense * LAUNCHES_PER_BLOCK
+    tail = 2 + gcfg.n_upsample
+    out = run_tool("kernel_bench",
+                   ["--variants", "lax,v3,v3b,v4,v5,v6,v8,v9"], 600)
+    kb_launches = json.loads(out.rstrip().splitlines()[-1]
+                             .split("launches: ", 1)[1])
+    times = {}
+    for v in ("v3", "v3b", "v4", "v5", "v6", "v8", "v9"):
+        for rows in (16, 32):
+            m = re.search(rf"^{v} rows={rows:2d}:\s+([\d.]+) ms", out, re.M)
+            if not m:
+                fail(f"kernel_bench printed no time for {v} rows={rows}")
+            times[f"{v}_rows{rows}"] = float(m.group(1))
+    m = re.search(r"^lax\s+:\s+([\d.]+) ms", out, re.M)
+    if not m:
+        fail("kernel_bench printed no time for lax")
+    times["lax"] = float(m.group(1))
+    idle = [n for n in ("fused_dense_block_cf", "fused_dense_block_cf2",
+                        "fused_dense_block_cf3", "fused_dense_block_cf6",
+                        "fused_dense_block_cf8", "dense_block")
+            if not kb_launches.get(n)]
+    if idle:
+        fail(f"kernel_bench launched no kernel through {idle}")
+
+    out = run_tool("model_bench", ["--variants", ",".join(MODEL_VARIANTS),
+                                   "--iters", "3"], 900)
+    mb_launches = json.loads(out.rstrip().splitlines()[-1]
+                             .split("launches: ", 1)[1])
+    model = {}
+    for v in MODEL_VARIANTS:
+        m = re.search(rf"^{re.escape(v)}\s*:\s+([\d.]+) ms/batch\s+"
+                      rf"([\d.]+) MP/s.*launches (\{{.*\}})$", out, re.M)
+        if not m:
+            fail(f"model_bench printed no time for {v}")
+        launches = json.loads(m.group(3))
+        model[v] = dict(ms=float(m.group(1)), mp_per_s=float(m.group(2)),
+                        launches=launches)
+        if v == "lax":
+            want = {}
+        elif v == "prod":
+            want = {"dense_block": per_forward}
+        else:
+            block, t = v.split("+")
+            want = {BLOCK_COUNTER[block]: per_forward}
+            if t == "ktail":
+                want["conv3x3"] = tail
+        if launches != want:
+            fail(f"model_bench {v}: one forward launched {launches}, want "
+                 f"{want}")
+    res = dict(kernel_bench_ms=times, kernel_bench_launches=kb_launches,
+               model_bench=model, model_bench_launches=mb_launches)
+    print("[tools] " + json.dumps(res), flush=True)
+    return res
+
+
+def lax_train_phase():
+    """``cli train --preset train_gan_dfm --conv_impl pallas``, full
+    width, one warmup and one GAN step: it trains on ``lax`` (no
+    backward of its own, as in the JAX package), says so, launches no
+    kernel of the port and gives finite metrics."""
+    import contextlib
+    import io
+
+    with tempfile.TemporaryDirectory() as tmp:
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            rc, records, totals = cli_train_recorded(
+                ["train", "--preset", "train_gan_dfm", "--conv_impl",
+                 "pallas", "--dataset_dir", os.path.join(tmp, "no_dataset"),
+                 "--steps", "2", "--warmup_batches", "1",
+                 "--checkpoint_dir", os.path.join(tmp, "ck")])
+    print(said.getvalue(), end="", flush=True)
+    for i, r in enumerate(records):
+        print(f"[train-lax] step {i + 1} " + json.dumps(r), flush=True)
+    line = "training on 'lax'" in said.getvalue()
+    print(f"[train-lax] cli train --conv_impl pallas: rc {rc}, printed the "
+          f"lax line: {line}, launches over the run {totals}", flush=True)
+    if rc != 0 or [r["kind"] for r in records] != ["warmup", "gan"] \
+            or not line:
+        fail(f"cli train --conv_impl pallas: rc {rc}, steps "
+             f"{[r['kind'] for r in records]}, lax line {line}")
+    if any(totals.values()):
+        fail(f"cli train on lax launched kernels of the port: {totals}")
+    for i, r in enumerate(records):
+        bad = [k for k, v in r["metrics"].items() if not math.isfinite(v)]
+        if bad:
+            fail(f"lax step {i + 1}: metrics {bad} not finite")
+    return dict(warmup_step_ms=records[0]["ms"], gan_step_ms=records[1]["ms"],
+                totals=totals)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "super_resolution_tpu_torch")):
         print("chip_smoke: the super_resolution_tpu_torch package is not "
@@ -1425,6 +1765,13 @@ def main() -> int:
     fused = fused_phase()
     impls = impls_phase(frame)
     tail_train = tail_train_phase()
+    lax_train = lax_train_phase()
+    experiments = experiments_phase()
+    int8 = int8_phase()
+    tools = tools_phase()
+    print("[impls] lax: " + json.dumps({
+        "forward": impls["lax"], "cli": impls["cli_lax"],
+        "train_pallas_on_lax": lax_train}), flush=True)
 
     flag, bwd = kern["flagship"], kern_bwd["train"]
     serve_launches = serve["upscale_launches"] + serve["serve_launches"]
@@ -1494,6 +1841,50 @@ def main() -> int:
         "bound_ms": fused["flagship"]["bound_ms"],
         "bound_by": fused["flagship"]["bound_by"],
         "library_ms": fused["flagship"]["library_ms"],
+    }, {
+        "name": "dense_block_experiments",
+        "route": "cuda",
+        "source": "super_resolution_tpu_torch/csrc/dense_block.cu",
+        "replaces": REPLACES_EXPERIMENTS,
+        # tools.kernel_bench and tools.model_bench, each counted from 0,
+        # on the wrappers of v3, v3b, v4 and v6
+        "launches": sum(tools[k].get(n, 0)
+                        for k in ("kernel_bench_launches",
+                                  "model_bench_launches")
+                        for n in ("fused_dense_block_cf",
+                                  "fused_dense_block_cf2",
+                                  "fused_dense_block_cf3",
+                                  "fused_dense_block_cf6")),
+        "launches_by_wrapper": {
+            n: tools["kernel_bench_launches"].get(n, 0)
+            + tools["model_bench_launches"].get(n, 0)
+            for n in ("fused_dense_block_cf", "fused_dense_block_cf2",
+                      "fused_dense_block_cf3", "fused_dense_block_cf6")},
+        "max_abs_err": max(v["max_abs_err"] for v in experiments.values()),
+        "ms": experiments["cf3_flagship"]["kernel_ms"],
+        "plain_ms": experiments["cf3_flagship"]["plain_ms"],
+        "bound_ms": experiments["cf3_flagship"]["bound_ms"],
+        "bound_by": experiments["cf3_flagship"]["bound_by"],
+        "library_ms": experiments["cf3_flagship"]["library_ms"],
+        "ms_by_case": {k: v["kernel_ms"] for k, v in experiments.items()},
+    }, {
+        "name": "dense_block_int8",
+        "route": "cuda",
+        "source": "super_resolution_tpu_torch/csrc/dense_block_int8.cu",
+        "replaces": REPLACES_INT8,
+        # tools.kernel_bench v8, counted from 0
+        "launches": tools["kernel_bench_launches"]["fused_dense_block_cf8"],
+        "max_abs_err": int8["flagship_rows16"]["max_abs_err"],
+        "ms": int8["flagship_rows16"]["kernel_ms"],
+        "plain_ms": int8["flagship_rows16"]["plain_ms"],
+        "bound_ms": int8["flagship_rows16"]["bound_ms"],
+        "bound_by": int8["flagship_rows16"]["bound_by"],
+        # no PyTorch call computes this function; cuDNN's bf16 block for
+        # scale
+        "library_ms": None,
+        "cudnn_bf16_block_ms": int8["flagship_rows16"]["cudnn_block_ms"],
+        "kernels_device_ms": int8["flagship_rows16"]["kernels_device_ms"],
+        "ms_rows32": int8["flagship_rows32"]["kernel_ms"],
     }]}))
     print(smi)                       # card name, power limit
     print(json.dumps({"ok": True, "device": {

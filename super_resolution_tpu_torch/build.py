@@ -25,7 +25,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # kernel name -> source under csrc/
 SOURCES = {"dense_block": "dense_block.cu",
            "dense_block_bwd": "dense_block_bwd.cu",
-           "conv3x3": "conv3x3.cu"}
+           "conv3x3": "conv3x3.cu",
+           "dense_block_int8": "dense_block_int8.cu"}
 # headers under csrc/ that the sources include
 HEADERS = ("conv3x3_tile.cuh",)
 

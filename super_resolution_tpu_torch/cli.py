@@ -17,8 +17,8 @@ are refused.  ``--data_parallel`` above 1, ``--multihost``,
 ``--loader grain``, ``--profile_dir`` and ``--eval_dir`` are accepted by
 the parser and raise: they are not ported yet (ROADMAP.md).
 ``--conv_impl`` picks the conv path by the JAX package's names (``auto``
-= ``pallas_cf``, ``pallas_cf_tail``, ``pallas``, ``pallas_fused``;
-``lax`` is not ported yet and raises) for ``upscale``, ``serve`` and
+= ``pallas_cf``, ``pallas_cf_tail``, ``pallas``, ``pallas_fused``, and
+``lax``: cuDNN, no kernel of the port) for ``upscale``, ``serve`` and
 ``train``; a checkpoint sets the architecture, never the impl.  Default
 tile geometry: square 384, no height bucket, no alignment under every
 impl: the port's kernels take every tile shape, so the JAX package's
@@ -233,9 +233,9 @@ def _add_common(p: argparse.ArgumentParser):
                         "pallas_cf_tail (+ the single-conv kernel on the "
                         "upsample tail), pallas (every conv through the "
                         "single-conv kernel), pallas_fused (the NHWC "
-                        "dense-block entry); lax is not ported yet and "
-                        "raises.  Training runs pallas and pallas_fused "
-                        "on pallas_cf (no backward)")
+                        "dense-block entry), lax (every conv through "
+                        "cuDNN, no kernel).  Training runs pallas and "
+                        "pallas_fused on lax (no backward)")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--data_parallel", type=int, default=None,
                    help="DP-of-tiles over this many devices (the port "

@@ -15,7 +15,8 @@ every conv through the single-conv kernel and ``"pallas_fused"`` every
 dense block through the NHWC dense-block entry, both NHWC inside.  Each
 kernel dispatches by the device of the tensor it is given (the kernel
 on CUDA, its plain version on the CPU), so there is no backend
-fallback.  ``"lax"`` (XLA's conv, no kernel) is not ported yet.
+fallback.  ``"lax"`` is the JAX package's XLA conv path: every conv
+through ``F.conv2d`` (cuDNN on the card), no kernel of the port.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import Optional, Tuple
 IMAGENET_MEAN: Tuple[float, float, float] = (0.485, 0.456, 0.406)
 IMAGENET_STD: Tuple[float, float, float] = (0.229, 0.224, 0.225)
 
-CONV_IMPLS = ("auto", "pallas_cf", "pallas_cf_tail", "pallas",
+CONV_IMPLS = ("auto", "lax", "pallas_cf", "pallas_cf_tail", "pallas",
               "pallas_fused")
 
 
@@ -59,10 +60,6 @@ class GeneratorConfig:
     tail_up: str = "naive"            # "polyphase" is not ported yet
 
     def __post_init__(self):
-        if self.conv_impl == "lax":
-            raise NotImplementedError(
-                "conv_impl='lax' (XLA's conv, no kernel) is not ported yet "
-                "(ROADMAP.md Queue 1, the modules still missing)")
         if self.conv_impl not in CONV_IMPLS:
             raise ValueError(f"unknown conv_impl {self.conv_impl!r}; have "
                              f"{CONV_IMPLS}")

@@ -29,6 +29,11 @@ the conv path as the JAX package's does:
 - ``pallas_fused``: NHWC inside.  Every dense block through
   :func:`ops.dense_block.fused_dense_block`; the stem, trunk and tail
   convs ``F.conv2d`` on the channels-last view.
+- ``lax``: the JAX package's XLA path, with no kernel of the port.
+  Every conv ``F.conv2d`` (cuDNN on the card) with its bias in the
+  compute dtype, on the channels-last storage of the NHWC input; each
+  dense block conv by conv in the JAX order (the conv, LeakyReLU in the
+  compute dtype, the concat, the residual in the compute dtype).
 
 On CUDA tensors the kernels launch; on CPU tensors their plain versions
 run.  Parameters are float32.  :meth:`RRDBNet.prepare` casts them to
@@ -39,10 +44,11 @@ is detached and serves inference.  For training,
 packs the live parameters inside the graph and runs the dense blocks
 through :func:`ops.dense_block.dense_block_train` and the tail kernels
 through :func:`ops.conv3x3.conv3x3_cf_train`, so gradients reach the
-float32 ``weight`` and ``bias``; ``pallas`` and ``pallas_fused`` have
-no backward (``train.steps.training_cfg`` trains them on
-``pallas_cf``).  In float32 every conv runs with TF32 off (the JAX
-package pins ``Precision.HIGHEST`` for float32).
+float32 ``weight`` and ``bias``; under ``lax`` autograd goes through
+``F.conv2d``.  ``pallas`` and ``pallas_fused`` have no backward
+(``train.steps.training_cfg`` trains them on ``lax``).  In float32
+every conv runs with TF32 off (the JAX package pins
+``Precision.HIGHEST`` for float32).
 """
 
 from __future__ import annotations
@@ -158,11 +164,15 @@ class DenseBlock(nn.Module):
 
     def prepare(self, dtype: torch.dtype, live: bool = False) -> None:
         """Pack the weights into the kernels' layout in ``dtype`` and
-        keep the biases float32, as the kernels take them; ``live``
-        leaves that to every forward."""
+        keep the biases float32, as the kernels take them (under ``lax``
+        each conv casts its own); ``live`` leaves that to every
+        forward."""
         self._dtype = dtype
         self._w = self._b = None
-        if not live:
+        if self.impl == "lax":
+            for c in self.convs():
+                c.prepare(dtype, live)
+        elif not live:
             self._w = [pack_weight(c.weight.detach()).to(dtype)
                        for c in self.convs()]
             self._b = [c.bias.detach().float().contiguous()
@@ -170,6 +180,8 @@ class DenseBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         kw = dict(res_scale=self.cfg.res_scale, slope=self.cfg.lrelu_slope)
+        if self.impl == "lax":
+            return self._per_conv_lax(x)
         if self.impl == "pallas":
             return self._per_conv_nhwc(x)
         if self.impl == "pallas_fused":
@@ -180,6 +192,16 @@ class DenseBlock(nn.Module):
                     for c in self.convs()],
                 [c.bias for c in self.convs()], **kw)
         return dense_block(x, self._w, self._b, **kw)
+
+    def _per_conv_lax(self, x: torch.Tensor) -> torch.Tensor:
+        """``lax``: each conv ``F.conv2d``, LeakyReLU and the concat in
+        the compute dtype, then the residual in the compute dtype."""
+        feats, slope = x, self.cfg.lrelu_slope
+        for k, conv in enumerate(self.convs()):
+            out = conv(feats)
+            if k < N_CONVS - 1:
+                feats = torch.cat([feats, F.leaky_relu(out, slope)], 1)
+        return x + self.cfg.res_scale * out
 
     def _per_conv_nhwc(self, x: torch.Tensor) -> torch.Tensor:
         """``pallas``: each conv through the single-conv kernel into its
@@ -259,7 +281,7 @@ class RRDBNet(nn.Module):
             raise NotImplementedError(
                 f"conv_impl={self.impl!r} has no backward (nor has it in "
                 f"the JAX package); train.steps.training_cfg trains it on "
-                f"'pallas_cf'")
+                f"'lax'")
         # a dense block's convs run from the block's own packed weights
         for m in self.modules():
             if isinstance(m, DenseBlock):
@@ -282,7 +304,11 @@ class RRDBNet(nn.Module):
             x = x.to(self._dtype)
             if self.impl in NHWC_IMPLS:
                 return self._forward_nhwc(x.contiguous()).float()
-            out = self._forward_nchw(x.permute(0, 3, 1, 2).contiguous())
+            x = x.permute(0, 3, 1, 2)
+            # lax: cuDNN on the channels-last storage; the kernels' paths
+            # take contiguous NCHW
+            out = self._forward_nchw(x if self.impl == "lax"
+                                     else x.contiguous())
         return out.float().permute(0, 2, 3, 1)
 
     def _forward_nchw(self, x: torch.Tensor) -> torch.Tensor:

@@ -55,17 +55,17 @@ StepFn = Callable[[GANTrainState, torch.Tensor], Metrics]
 def training_cfg(cfg: TrainConfig) -> TrainConfig:
     """The config training differentiates through, after the JAX
     package's ``train/steps.py:_training_cfg``: ``auto`` resolved to
-    ``pallas_cf``; ``pallas_cf`` and ``pallas_cf_tail`` train as they are
-    (their kernels take every geometry, so nothing falls back);
-    ``pallas`` and ``pallas_fused`` have no backward, which the JAX
-    package trains on ``lax`` and the port, without ``lax``, on
-    ``pallas_cf``, saying so in one line.  The parameters are the same
-    under every impl, so checkpoints swap freely."""
+    ``pallas_cf``; ``lax``, ``pallas_cf`` and ``pallas_cf_tail`` train as
+    they are (the kernels take every geometry, so nothing falls back);
+    ``pallas`` and ``pallas_fused`` have no backward and train on
+    ``lax``, as in the JAX package, saying so in one line.  The
+    parameters are the same under every impl, so checkpoints swap
+    freely."""
     impl = resolve_conv_impl(cfg.generator.conv_impl)
     if impl in ("pallas", "pallas_fused"):
         print(f"[train] conv_impl={impl!r} has no backward: training on "
-              f"'pallas_cf' (the same parameters)", flush=True)
-        impl = "pallas_cf"
+              f"'lax' (the same parameters)", flush=True)
+        impl = "lax"
     return dataclasses.replace(
         cfg, generator=dataclasses.replace(cfg.generator, conv_impl=impl))
 

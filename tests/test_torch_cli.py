@@ -180,15 +180,22 @@ def test_default_device_is_the_card(pth, tmp_path):
     assert not os.path.exists(tmp_path / "sr.png")
 
 
-@pytest.mark.parametrize("argv,err", [
-    (["--data_parallel", "2"], NotImplementedError),
-    (["--conv_impl", "lax"], NotImplementedError),
-], ids=["data_parallel", "conv_impl"])
-def test_unported_options_raise(pth, tmp_path, argv, err):
+@pytest.mark.parametrize("cmd,argv,err", [
+    ("upscale", ["--data_parallel", "2"], NotImplementedError),
+    ("train", ["--loader", "grain"], NotImplementedError),
+], ids=["data_parallel", "loader_grain"])
+def test_unported_options_raise(pth, tmp_path, cmd, argv, err):
     src = _save(tmp_path, "lr.png", _frame(8, 8, 8))
+    if cmd == "upscale":
+        argv = ["upscale", "--image", src, "--checkpoint", pth, "--out",
+                str(tmp_path / "sr.png"), *argv]
+    else:
+        argv = ["train", "--dataset_dir", str(tmp_path), "--steps", "1",
+                "--checkpoint_dir", str(tmp_path / "ck"), *argv]
     with pytest.raises(err):
-        main(["upscale", "--image", src, "--checkpoint", pth, "--out",
-              str(tmp_path / "sr.png"), *argv, *CPU])
+        main([*argv, *CPU])
+    assert not os.path.exists(tmp_path / "sr.png")
+    assert not os.path.exists(tmp_path / "ck")
 
 
 def test_orbax_directory_is_refused(tmp_path):

@@ -14,8 +14,9 @@
   at 128-aligned or foldable widths), float32;
 - ``cli upscale --conv_impl X`` against the port's direct forward under
   X: 0 uint8 delta;
-- training: ``pallas`` and ``pallas_fused`` train on ``pallas_cf`` and
-  say so; the initial weights do not depend on the impl.
+- training: ``pallas`` and ``pallas_fused`` train on ``lax``, as in the
+  JAX package, and say so; the initial weights do not depend on the
+  impl.
 
 The TPU interpreter dispatches JAX work from its callbacks, and eager
 work that the test's thread dispatches meanwhile can deadlock it (flax's
@@ -170,11 +171,13 @@ def test_cli_upscale_equals_direct_forward(impl, pth, tmp_path):
 
 
 def test_training_runs_nhwc_impls_on_pallas_cf(capsys):
+    """The NHWC impls train on ``lax`` (the test keeps its name from when
+    the port, without ``lax``, trained them on ``pallas_cf``)."""
     base = C.TrainConfig(generator=C.GeneratorConfig(**SMALL))
     for impl, want in (("auto", "pallas_cf"), ("pallas_cf", "pallas_cf"),
                        ("pallas_cf_tail", "pallas_cf_tail"),
-                       ("pallas", "pallas_cf"),
-                       ("pallas_fused", "pallas_cf")):
+                       ("lax", "lax"), ("pallas", "lax"),
+                       ("pallas_fused", "lax")):
         cfg = dataclasses.replace(base, generator=dataclasses.replace(
             base.generator, conv_impl=impl))
         capsys.readouterr()

@@ -1,9 +1,10 @@
 """Tests of the port that need the card: the dense-block CUDA kernels,
-forward (NCHW and NHWC entries) and backward, and the single-conv
-kernel, against their plain versions, their launch counts and input
-checks, and the generator under every conv impl, a training step and
-the CLI on CUDA.  Marked ``cuda``; each skips where torch sees
-no CUDA device.  On a machine with a card (no JAX needed there):
+forward (NCHW and NHWC entries) and backward, the single-conv kernel,
+the experiment variants v3–v6 routed to the dense-block kernel and the
+int8 kernel of v8, against their plain versions, their launch counts and
+input checks, and the generator under every conv impl (lax included), a
+training step and the CLI on CUDA.  Marked ``cuda``; each skips where
+torch sees no CUDA device.  On a machine with a card (no JAX needed there):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
@@ -56,6 +57,8 @@ pytestmark = pytest.mark.cuda
 # the module: the package's ``ops`` exports a function of the same name
 db_ops = importlib.import_module("super_resolution_tpu_torch.ops.dense_block")
 c3_ops = importlib.import_module("super_resolution_tpu_torch.ops.conv3x3")
+ex_ops = importlib.import_module(
+    "super_resolution_tpu_torch.ops.experiments_dense_block")
 
 TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (2.0 ** -6, 2.0 ** -6)}
 
@@ -434,3 +437,95 @@ def test_generator_impls_match_plain_forward(cuda, monkeypatch, impl,
             "pallas_fused": [0, n_blocks * LAUNCHES_PER_BLOCK, 0]}[impl]
     assert counts == want
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+def _hwio_block(shape, growth, dtype, device, seed=0):
+    """x and HWIO weights / f32 biases (the experiment kernels' contract)."""
+    gen = torch.Generator().manual_seed(seed)
+    c = shape[1]
+    x = torch.randn(shape, generator=gen).to(device, dtype)
+    ws, bs, cin = [], [], c
+    for k in range(5):
+        cout = c if k == 4 else growth
+        ws.append((torch.randn(3, 3, cin, cout, generator=gen)
+                   * math.sqrt(2.0 / (9 * cin))).to(device, dtype))
+        bs.append((torch.randn(cout, generator=gen) * 0.1).to(device))
+        cin += growth
+    return x, ws, bs
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("fused_dense_block_cf", {}), ("fused_dense_block_cf2", {}),
+    ("fused_dense_block_cf3", {}), ("fused_dense_block_cf3",
+                                    {"save_acts": True}),
+    ("fused_dense_block_cf6", {})],
+    ids=["cf", "cf2", "cf3", "cf3_save_acts", "cf6"])
+def test_routed_experiments_launch_the_block_kernel(cuda, name, kw):
+    """v3–v6 route to csrc/dense_block.cu: five launches per call on
+    their own counter, the plain version's values."""
+    fn = getattr(ex_ops, name)
+    x, ws, bs = _hwio_block((2, 32, 64, 40), 16, torch.bfloat16, cuda)
+    before = (fn.launches, dense_block.launches)
+    with torch.inference_mode():
+        got = fn(x, ws, bs, **kw)
+        torch.cuda.synchronize()
+        assert (fn.launches - before[0], dense_block.launches - before[1]) \
+            == (LAUNCHES_PER_BLOCK, 0)
+        ref = fn(x.cpu(), [w.cpu() for w in ws], [b.cpu() for b in bs],
+                 **kw)
+    if kw:
+        (got, acts), (ref, ref_acts) = got, ref
+        for a, r in zip(acts, ref_acts):
+            torch.testing.assert_close(a.cpu().float(), r.float(),
+                                       atol=2.0 ** -6, rtol=2.0 ** -6)
+    torch.testing.assert_close(got.cpu().float(), ref.float(),
+                               atol=2.0 ** -6, rtol=2.0 ** -6)
+
+
+@pytest.mark.parametrize("shape,growth,dtype,rows", [
+    ((2, 64, 64, 48), 32, torch.bfloat16, 16),
+    ((1, 16, 40, 37), 8, torch.float32, 8),
+    ((1, 24, 30, 20), 16, torch.bfloat16, 10),
+])
+def test_int8_kernel_matches_plain(cuda, shape, growth, dtype, rows):
+    """The int8 kernel against its plain version on the card: the same
+    integers and the same f32 steps, so equal up to an ULP of x's dtype
+    (a flipped quantization would move values by ~1e-3 of |y|)."""
+    fn = ex_ops.fused_dense_block_cf8
+    x, ws, bs = _hwio_block(shape, growth, dtype, cuda, seed=3)
+    before = fn.launches
+    with torch.inference_mode():
+        got = fn(x, ws, bs, rows=rows)
+        torch.cuda.synchronize()
+        assert fn.launches - before == ex_ops.INT8_LAUNCHES_PER_CALL
+        ref = ex_ops.fused_dense_block_cf8_plain(x, ws, bs, rows=rows)
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -23
+    diff = (got.float() - ref.float()).abs()
+    assert bool((diff <= ulp * ref.float().abs().clamp_min(1e-30)).all()) \
+        or diff.max().item() == 0.0
+
+
+def test_int8_kernel_depends_on_rows(cuda):
+    x, ws, bs = _hwio_block((1, 32, 64, 40), 16, torch.bfloat16, cuda,
+                            seed=4)
+    with torch.inference_mode():
+        y16 = ex_ops.fused_dense_block_cf8(x, ws, bs, rows=16)
+        y32 = ex_ops.fused_dense_block_cf8(x, ws, bs, rows=32)
+    assert not torch.equal(y16, y32)
+
+
+def test_lax_generator_on_the_card_matches_the_cpu(cuda):
+    """conv_impl lax: cuDNN on the card, no kernel of the port, float32
+    (TF32 off) against the CPU."""
+    cfg = GeneratorConfig(n_blocks=2, filters=32, growth=16,
+                          conv_impl="lax", init="torch_default")
+    model = rrdb.RRDBNet(cfg, torch.Generator().manual_seed(1))
+    x = torch.randn(2, 24, 40, 3, generator=torch.Generator().manual_seed(2))
+    with torch.inference_mode():
+        ref = model.prepare(torch.float32)(x)
+        counters = (dense_block, fused_dense_block, conv3x3)
+        before = [f.launches for f in counters]
+        got = model.to(cuda).prepare(torch.float32)(x.to(cuda))
+        assert [f.launches for f in counters] == before
+    torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)

@@ -155,16 +155,15 @@ def test_configs_match_jax_field_for_field():
 
 
 def test_only_auto_conv_impl_and_naive_tail():
-    """The JAX package's Pallas conv paths build; lax (no kernel) and the
-    polyphase tail are not ported yet and raise."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GeneratorConfig(conv_impl="lax")
+    """Every conv path of the JAX package builds, lax included; an
+    unknown impl raises, and the polyphase tail is not ported yet and
+    raises."""
     with pytest.raises(ValueError, match="conv_impl"):
         GeneratorConfig(conv_impl="xla")
     with pytest.raises(NotImplementedError):
         RRDBNet(GeneratorConfig(n_blocks=1, filters=16, growth=8,
                                 tail_up="polyphase"))
-    for impl in ("auto", "pallas_cf", "pallas_cf_tail", "pallas",
+    for impl in ("auto", "lax", "pallas_cf", "pallas_cf_tail", "pallas",
                  "pallas_fused"):
         model = RRDBNet(GeneratorConfig(n_blocks=1, filters=16, growth=8,
                                         conv_impl=impl))
