@@ -8,7 +8,16 @@ Phases, in order; any failed check raises, so the script exits nonzero
 and prints no result line:
 
 1. the card (name and power limit from nvidia-smi), torch and CUDA;
-   every kernel of the port built from ``csrc/`` with nvcc (timed).
+   every kernel of the port built from ``csrc/`` with nvcc (timed), and
+   what ``ptxas -v`` reports for each kernel of the Hopper tile
+   (``csrc/conv3x3_wgmma.cuh``): registers, shared memory, spills, with
+   the tile's plan (N, K chunk, stages, weights resident, dynamic shared
+   memory) at the main path's shapes.  Then the tile's load path: a
+   dense block whose buffer is NaN from each conv's cin upward before
+   its launch, a single conv from a channel prefix of one buffer into a
+   channel slice of another (neighbours unchanged bit for bit), bf16
+   planes whose H and W are not multiples of 16, and the 64 -> 256
+   upconv, each against its plain version.
 2. kernel: the dense-block forward kernel against its plain PyTorch
    version on the card at seven shapes (flagship bf16, odd-geometry
    fp32, the growth-64 slope-0.01 variant, a narrow one, the two tile
@@ -261,6 +270,150 @@ def cudnn_block(x, ws_oihw, bs, slope=0.2):
                          slope)
         feats = torch.cat([feats, o], 1)
     return x + 0.2 * F.conv2d(feats, ws_oihw[4], bias[4], padding=1)
+
+
+def ptxas_lines(build):
+    """One line per library: what ptxas reported for each kernel of the
+    Hopper tile (conv3x3_wgmma<N, K chunk, output dtype>)."""
+    import re
+
+    pat = re.compile(r"conv3x3_wgmmaILi(\d+)ELi(\d+)E(13__nv_bfloat16|f)")
+    lines = []
+    for name in ("dense_block", "conv3x3"):
+        parts = []
+        for k in build.ptxas_report(name):
+            m = pat.search(k["kernel"])
+            if not m:
+                continue
+            out = "bf16" if m.group(3) != "f" else "f32"
+            parts.append(
+                f"<{m.group(1)},{m.group(2)},{out}> {k['registers']} regs, "
+                f"{k['smem_bytes']} B static smem, spills "
+                f"{k['spill_stores']}/{k['spill_loads']} B"
+                + (f", {len(k['notes'])} wgmma notes: {k['notes']}"
+                   if k["notes"] else ""))
+        if not parts:
+            fail(f"no ptxas report of the Hopper tile in {name}'s build")
+        lines.append(f"[build] ptxas -v, {name}: conv3x3_wgmma"
+                     + "; ".join(parts))
+    return lines
+
+
+# (cout, cin, out_bf16) of the main path's convs: dense-block convs 1-5,
+# the tail's 64 -> 64, conv_first (padded to 8), conv_last, the upconv
+PLAN_SHAPES = ((32, 64, 1), (32, 96, 1), (32, 128, 1), (32, 160, 1),
+               (64, 192, 1), (64, 64, 1), (64, 8, 1), (3, 64, 1),
+               (256, 64, 1))
+
+
+def plan_line():
+    """The Hopper tile's plan at the main path's shapes."""
+    import ctypes
+
+    from super_resolution_tpu_torch.ops.conv3x3 import _lib
+
+    lib = _lib()
+    plans = {}
+    for cout, cin, out_bf16 in PLAN_SHAPES:
+        plan = (ctypes.c_int * 5)()
+        if lib.conv3x3_wgmma_plan(cout, cin, out_bf16, plan) != 0:
+            fail(f"no plan of the Hopper tile for {cin} -> {cout}")
+        plans[f"{cin}->{cout}"] = dict(zip(
+            ("n", "k_chunk", "stages", "weights_resident", "smem_bytes"),
+            list(plan)))
+    return "[build] plans " + json.dumps(plans)
+
+
+def tile_checks_phase():
+    """The Hopper tile's load path: TMA's zero fill for the halo and the
+    cut at cin, the ragged edge, channel slices, the 256-channel upconv."""
+    import importlib
+
+    import torch
+
+    from super_resolution_tpu_torch.device import no_tf32
+    from super_resolution_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
+    from super_resolution_tpu_torch.ops.dense_block import (
+        dense_block_plain,
+        pack_weight,
+    )
+
+    def conv_inputs(shape, cout, seed):
+        gen = torch.Generator().manual_seed(seed)
+        cin = shape[-1]
+        x = torch.randn(shape, generator=gen).to("cuda", torch.bfloat16)
+        w = pack_weight(torch.randn(cout, cin, 3, 3, generator=gen)
+                        * math.sqrt(2.0 / (9 * cin))).to("cuda",
+                                                         torch.bfloat16)
+        return x, w, (torch.randn(cout, generator=gen) * 0.1).cuda()
+
+    def close(got, want, tol):
+        atol, rtol = tol
+        diff = (got.float() - want.float()).abs()
+        return (bool(torch.isfinite(got.float()).all())
+                and (diff - rtol * want.float().abs()).max().item() <= atol,
+                diff.max().item())
+
+    class Uncounted:        # checks are not the main path
+        launches = 0
+
+    # the module (the package's ops exports a function of the same name)
+    db_ops = importlib.import_module(
+        "super_resolution_tpu_torch.ops.dense_block")
+
+    results = {}
+    with torch.inference_mode(), no_tf32():
+        for name, shape, growth, nhwc in (
+                ("poison_flagship", (8, 64, 128, 128), 32, False),
+                ("poison_odd", (2, 64, 37, 53), 32, False),
+                ("poison_nhwc_odd", (1, 64, 21, 19), 32, True)):
+            x, ws, _, bs = make_block(shape, growth, torch.bfloat16,
+                                      500 + len(results))
+            x_nhwc = x.permute(0, 2, 3, 1)
+            y, buf = db_ops._launch_block(
+                Uncounted, x_nhwc.contiguous() if nhwc else x, x_nhwc, ws,
+                bs, 0.2, 0.2, nhwc=nhwc, poison=True)
+            torch.cuda.synchronize()
+            ref = dense_block_plain(x, ws, bs, res_scale=0.2, slope=0.2)
+            ok, err = close(y, ref.permute(0, 2, 3, 1) if nhwc else ref,
+                            TOL["bfloat16"])
+            ok = ok and bool(torch.isfinite(buf.float()).all())
+            results[name] = dict(shape=list(shape), nhwc=nhwc, ok=ok,
+                                 max_abs_err=err)
+        # a prefix of one buffer into a slice of another
+        src, w, b = conv_inputs((2, 37, 53, 96), 32, 510)
+        gen = torch.Generator().manual_seed(511)
+        dst = torch.randn(2, 37, 53, 128, generator=gen).to(
+            "cuda", torch.bfloat16)
+        src0, dst0 = src.clone(), dst.clone()
+        conv3x3(src[..., :64], w[..., :64].contiguous(), b, act=True,
+                slope=0.2, out=dst[..., 40:72])
+        torch.cuda.synchronize()
+        want = conv3x3_plain(src[..., :64], w[..., :64].contiguous(), b,
+                             act=True, slope=0.2)
+        ok, err = close(dst[..., 40:72], want, CONV_TOL["bfloat16"])
+        ok = (ok and torch.equal(src, src0)
+              and torch.equal(dst[..., :40], dst0[..., :40])
+              and torch.equal(dst[..., 72:], dst0[..., 72:]))
+        results["prefix_into_slice"] = dict(ok=ok, max_abs_err=err)
+        for name, shape, cout in (("ragged_tail", (2, 37, 53, 64), 64),
+                                  ("ragged_small", (1, 7, 9, 64), 32),
+                                  ("ragged_conv5", (1, 29, 45, 192), 64),
+                                  ("upconv_256", (8, 128, 128, 64), 256),
+                                  ("upconv_256_ragged", (1, 35, 30, 64),
+                                   256)):
+            x, w, b = conv_inputs(shape, cout, 520 + len(results))
+            y = conv3x3(x, w, b, act=True, slope=0.2)
+            torch.cuda.synchronize()
+            ok, err = close(y, conv3x3_plain(x, w, b, act=True, slope=0.2),
+                            CONV_TOL["bfloat16"])
+            results[name] = dict(shape=list(shape), cout=cout, ok=ok,
+                                 max_abs_err=err)
+    print("[tile-checks] " + json.dumps(results), flush=True)
+    bad = [k for k, v in results.items() if not v["ok"]]
+    if bad:
+        fail(f"Hopper tile checks failed: {bad}")
+    return results
 
 
 def kernel_phase():
@@ -1755,6 +1908,10 @@ def main() -> int:
           f"for sm_90a in {time.perf_counter() - t0:.2f} s: "
           + ", ".join(os.path.relpath(build.library_path(n), HERE)
                       for n in build.SOURCES), flush=True)
+    for line in ptxas_lines(build):
+        print(line, flush=True)
+    print(plan_line(), flush=True)
+    tile_checks_phase()
 
     kern = kernel_phase()
     kern_bwd = bwd_kernel_phase()

@@ -5,7 +5,9 @@ shared library with a plain C interface, and loaded with ``ctypes``.
 Libraries go to ``_build/`` inside the package (listed in .gitignore),
 named by a hash of the source, the shared headers and the flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is.  Nothing is built when a
-module is imported: the first launch builds what it needs.
+module is imported: the first launch builds what it needs.  ``ptxas -v``
+reports each kernel's registers, shared memory and spills into a log
+beside the library; :func:`ptxas_report` reads it.
 """
 
 from __future__ import annotations
@@ -13,10 +15,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, List
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -28,10 +31,10 @@ SOURCES = {"dense_block": "dense_block.cu",
            "conv3x3": "conv3x3.cu",
            "dense_block_int8": "dense_block_int8.cu"}
 # headers under csrc/ that the sources include
-HEADERS = ("conv3x3_tile.cuh",)
+HEADERS = ("conv3x3_tile.cuh", "conv3x3_wgmma.cuh")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -70,6 +73,8 @@ def _finish_nvcc(name: str, proc, tmp: str, dst: str) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {SOURCES[name]} (exit "
                            f"{proc.returncode}):\n{out}")
+    with open(f"{dst}.log", "w") as f:
+        f.write(out)
     os.replace(tmp, dst)   # a reader never sees a partial file
 
 
@@ -101,3 +106,49 @@ def build_all() -> None:
                 errors.append(str(e))
         if errors:
             raise RuntimeError("\n".join(errors))
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                     r"(\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def parse_ptxas(log: str) -> List[dict]:
+    """Per kernel of an ``nvcc -Xptxas -v`` log: its (mangled) name,
+    registers, static shared memory and spill bytes; ptxas lines that
+    mention wgmma (serialized wgmma, for one) go under ``notes``."""
+    kernels: List[dict] = []
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            kernels.append({"kernel": m.group(1), "registers": None,
+                            "smem_bytes": 0, "spill_stores": None,
+                            "spill_loads": None, "notes": []})
+            continue
+        if not kernels:
+            continue
+        k = kernels[-1]
+        m = _SPILLS.search(line)
+        if m:
+            k["spill_stores"], k["spill_loads"] = (int(m.group(2)),
+                                                   int(m.group(3)))
+        m = _USED.search(line)
+        if m:
+            k["registers"] = int(m.group(1))
+            m = _SMEM.search(line)
+            k["smem_bytes"] = int(m.group(1)) if m else 0
+        if "wgmma." in line:       # a ptxas note on the instructions
+            k["notes"].append(line.strip())
+    return kernels
+
+
+def ptxas_report(name: str) -> List[dict]:
+    """:func:`parse_ptxas` of the build log of ``name`` (empty when the
+    library was built before logs were kept)."""
+    path = f"{library_path(name)}.log"
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return parse_ptxas(f.read())

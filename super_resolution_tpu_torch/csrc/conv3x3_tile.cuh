@@ -1,6 +1,8 @@
-// Shared device code of the dense-block kernels (dense_block.cu: forward;
-// dense_block_bwd.cu: backward): the 3x3 SAME conv of one 16x16-pixel
-// output tile as an implicit GEMM over a channels-last input, without an
+// The mma.sync / FMA conv tile, now serving only the backward's data
+// gradient (dense_block_bwd.cu, bf16 and f32) and the f32 forward paths
+// (dense_block.cu, conv3x3.cu); the bf16 forward runs on the Hopper tile
+// of conv3x3_wgmma.cuh.  The 3x3 SAME conv of one 16x16-pixel output
+// tile as an implicit GEMM over a channels-last input, without an
 // epilogue.  M = pixels, N = up to 64 output channels starting at n0,
 // K = 9 * input channels.
 //

@@ -25,29 +25,35 @@
 // per model as (9, cout, cin): tap-major (tap = dy*3 + dx), then output
 // channel, then input channel.
 //
-// The tile's main loop is shared with the backward kernels and lives in
-// conv3x3_tile.cuh.
+// bf16 runs on the Hopper tile of conv3x3_wgmma.cuh: TMA loads into a
+// ring of shared-memory stages, wgmma with A from registers, one
+// persistent block per SM walking 16x16-pixel output tiles, all output
+// channels of a conv in one block (N = 32 for convs 1-4, 64 for conv5).
+// The input tensor map stops at cin, so conv k reads nothing at or past
+// the slice it writes.  The epilogue stages each warp's 16 pixels in
+// shared memory and writes convs 1-4 as 16-byte pieces of their slice
+// (the pixel stride is c_total), and conv5's y as 16-byte runs of 8
+// pixels of one channel (NCHW) or of 8 channels of one pixel (NHWC),
+// reading x for the residual the same way.
 //
 // Bound.  At the flagship shape (8, 64, 128, 128) bf16 one block is
 // 62.8 GFLOP against 34.0 MB of input, weights and output: ~63.5 us of
 // tensor-core time at 989 TFLOP/s against ~10 us of memory time at
-// 3.35 TB/s, so it is bound by operations.  What this design does about
-// it: the bf16 path runs every multiply-add on the tensor cores
-// (mma.sync m16n8k16, f32 accumulate) as an implicit GEMM with
-// M = pixels, N = output channels, K = 9 * input channels: one 16x16-pixel
-// output tile and all output channels per block, K in chunks of 32
-// channels, the input patch and weight chunk brought into shared memory
-// by cp.async two chunks deep, so the next chunk's copy overlaps this
-// chunk's products.  Padded shared-memory rows keep the fragment loads
-// free of bank conflicts.  It is still a first kernel: mma.sync reaches
-// only part of the wgmma rate, and per-conv launches re-read the growing
-// buffer (from L2 at this size).  wgmma, TMA and one fused launch per
-// block are the next steps, measured in PERF.md.
+// 3.35 TB/s, so it is bound by operations.  What the design does about
+// it: every multiply-add on wgmma, fed by TMA with no load instructions
+// in the consumer warps; convs 1-4 keep their weights (36.9-92.2 KB) in
+// shared memory for the whole launch, so each tile moves only its input
+// patch; conv5's 221 KB of weights fit in no block and come 32 input
+// channels at a time with each stage of the ring, three stages deep.
+// Still one launch per conv, so the growing buffer is re-read per conv
+// (from L2 at this size); one fused launch per block is a later step.
+// PERF.md has the times.
 //
-// The f32 path (used when the model runs in float32) uses scalar FMA in
-// the same tiling, so float32 stays IEEE float32 (no TF32).
+// The f32 path (used when the model runs in float32) is the scalar-FMA
+// tile of conv3x3_tile.cuh, so float32 stays IEEE float32 (no TF32).
 
 #include "conv3x3_tile.cuh"
+#include "conv3x3_wgmma.cuh"
 
 namespace {
 
@@ -81,50 +87,6 @@ __device__ __forceinline__ void store_res(const ConvArgs& a, int b, int n,
   const float x = to_f32(static_cast<const T*>(a.res)[i]);
   static_cast<T*>(a.out)[i] =
       from_f32<T>(__fadd_rn(x, __fmul_rn(a.res_scale, conv5)));
-}
-
-// bf16: the tile of conv3x3_tile.cuh on the tensor cores, then the
-// epilogue on the accumulator fragments.
-template <int NT>
-__global__ void __launch_bounds__(kThreads, NT <= 4 ? 2 : 1)
-    conv3x3_bf16(ConvArgs a) {
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * kTileH, x0 = blockIdx.x * kTileW;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  float acc[2][NT][4];
-  conv_tile_bf16<NT>(a.c, b, 0, y0, x0, acc);
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    const int oy = y0 + warp * 2 + mt;
-    if (oy >= a.c.h) continue;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int ox = x0 + g + 8 * half;
-      if (ox >= a.c.w_img) continue;
-      const size_t pix = (size_t)oy * a.c.w_img + ox;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int n = nt * 8 + 2 * t;            // n + 1 < cout with n
-        if (n >= a.c.cout) continue;
-        const float v0 = acc[mt][nt][2 * half];
-        const float v1 = acc[mt][nt][2 * half + 1];
-        if (a.residual) {
-          store_res<__nv_bfloat16>(a, b, n, pix, v0);
-          store_res<__nv_bfloat16>(a, b, n + 1, pix, v1);
-        } else {
-          __nv_bfloat16* out =
-              static_cast<__nv_bfloat16*>(a.out) +
-              ((size_t)b * a.c.h * a.c.w_img + pix) * a.c.c_total + n;
-          *reinterpret_cast<uint32_t*>(out) =
-              pack_bf16(act_out<__nv_bfloat16>(a, n, v0),
-                        act_out<__nv_bfloat16>(a, n + 1, v1));
-        }
-      }
-    }
-  }
 }
 
 // f32: scalar FMA, one output pixel and all N output channels per thread.
@@ -164,16 +126,6 @@ int launch(Kernel kernel, size_t smem, const ConvArgs& a, int batch,
   return (int)cudaGetLastError();
 }
 
-template <int NT>
-int launch_nt(int is_bf16, const ConvArgs& a, int batch,
-              cudaStream_t stream) {
-  if (is_bf16)
-    return launch(conv3x3_bf16<NT>, conv_tile_smem(true, 8 * NT), a, batch,
-                  stream);
-  return launch(conv3x3_f32<NT>, conv_tile_smem(false, 8 * NT), a, batch,
-                stream);
-}
-
 }  // namespace
 
 // One conv of the dense block.  Returns cudaGetLastError() after the
@@ -195,9 +147,20 @@ extern "C" int dense_block_conv(int is_bf16, const void* in, int c_total,
              static_cast<const float*>(bias), out, res, slope, res_scale,
              residual, nhwc};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cout <= 16) return launch_nt<2>(is_bf16, a, batch, s);
-  if (cout <= 32) return launch_nt<4>(is_bf16, a, batch, s);
-  return launch_nt<8>(is_bf16, a, batch, s);
+  if (is_bf16) {
+    const int mode = !residual ? wgc::kStore
+                     : nhwc    ? wgc::kResidualNHWC
+                               : wgc::kResidualNCHW;
+    wgc::Conv c{in, c_total, cin, w, cout, static_cast<const float*>(bias),
+                out, residual ? cout : c_total, 0, !residual, slope, mode,
+                res, res_scale, batch, h, w_img};
+    return wgc::launch<__nv_bfloat16, 64>(c, s);
+  }
+  if (cout <= 16)
+    return launch(conv3x3_f32<2>, conv_tile_smem(false, 16), a, batch, s);
+  if (cout <= 32)
+    return launch(conv3x3_f32<4>, conv_tile_smem(false, 32), a, batch, s);
+  return launch(conv3x3_f32<8>, conv_tile_smem(false, 64), a, batch, s);
 }
 
 extern "C" const char* dense_block_error_string(int code) {

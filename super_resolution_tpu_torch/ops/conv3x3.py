@@ -31,8 +31,9 @@ Weights are packed (9, cout, cin) in x's dtype
 (``ops.dense_block.pack_weight``), biases are float32.  A bfloat16 input
 whose channels are not a multiple of 8 (``conv_first``: 3) is padded
 with zero channels, input and weights, before the launch: the kernel
-copies 16-byte pieces; the zeros add nothing to any sum.  That costs one
-small copy of the input (8 channels a pixel) per call.
+loads by TMA, whose tensor maps need 16-byte pixel strides; the zeros
+add nothing to any sum.  That costs one small copy of the input (8
+channels a pixel) and of the weights per call.
 
 On a CUDA tensor each function launches the kernel (counted in
 ``conv3x3.launches``) or raises; on a CPU tensor it runs
@@ -149,19 +150,29 @@ def _lib() -> ctypes.CDLL:
         lib.conv3x3_launch.restype = ctypes.c_int
         lib.conv3x3_error_string.argtypes = [i]
         lib.conv3x3_error_string.restype = ctypes.c_char_p
+        lib.conv3x3_wgmma_plan.argtypes = [i, i, i,
+                                           ctypes.POINTER(ctypes.c_int)]
+        lib.conv3x3_wgmma_plan.restype = ctypes.c_int
     return lib
 
 
 def _pad_channels(x: torch.Tensor, w: torch.Tensor):
     """bf16 input channels padded with zeros to a multiple of 8, input
-    (a new contiguous buffer) and weights alike."""
-    cin = x.shape[-1]
-    c8 = -(-cin // BF16_CHANNELS) * BF16_CHANNELS
-    xp = x.new_zeros((*x.shape[:3], c8))
-    xp[..., :cin].copy_(x)
-    wp = w.new_zeros((9, w.shape[1], c8))
-    wp[..., :cin].copy_(w)
-    return xp, wp
+    and weights alike, each a new contiguous (so aligned) tensor.  The
+    padded weights are kept on ``w`` for its next call (a model's weights
+    are the same tensor every forward), keyed by its version counter;
+    an inference tensor has none, so its padding is not kept."""
+    pad = (0, -x.shape[-1] % BF16_CHANNELS)
+    if not pad[1]:     # a misaligned or odd-strided input: fresh copies
+        return (x.clone(memory_format=torch.contiguous_format),
+                w.clone(memory_format=torch.contiguous_format))
+    if w.is_inference():
+        return F.pad(x, pad).contiguous(), F.pad(w, pad)
+    kept = getattr(w, "_conv3x3_padded", None)
+    if kept is None or kept[0] != w._version:
+        kept = (w._version, F.pad(w, pad))
+        w._conv3x3_padded = kept
+    return F.pad(x, pad).contiguous(), kept[1]
 
 
 def conv3x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,

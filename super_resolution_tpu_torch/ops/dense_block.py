@@ -327,9 +327,11 @@ def _raise_on(rc: int, what: str) -> None:
 def _launch_block(counter, x: torch.Tensor, x_nhwc: torch.Tensor,
                   weights: Sequence[torch.Tensor],
                   biases: Sequence[torch.Tensor], res_scale: float,
-                  slope: float, nhwc: bool):
+                  slope: float, nhwc: bool, poison: bool = False):
     """The five launches of one block on the card, each counted in
-    ``counter.launches``: (y in x's layout, feature buffer)."""
+    ``counter.launches``: (y in x's layout, feature buffer).  ``poison``
+    (a check) fills every channel from each conv's cin upward with NaN
+    before its launch, so a read past cin would show in y."""
     lib = _lib()
     b, h, w, c = x_nhwc.shape
     growth = weights[0].shape[1]
@@ -342,6 +344,8 @@ def _launch_block(counter, x: torch.Tensor, x_nhwc: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         cin = c
         for k in range(N_CONVS):
+            if poison:
+                buf[..., cin:].fill_(float("nan"))
             last = k == N_CONVS - 1
             cout = weights[k].shape[1]
             out = y.data_ptr() if last else \

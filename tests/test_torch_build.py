@@ -1,0 +1,75 @@
+"""How the port's CUDA sources are built, checked without a compiler:
+the library name covers every shared header, the ptxas report is read
+back, and the bf16 forward kernels sit on the Hopper tile."""
+
+import os
+import shutil
+
+import pytest
+
+from super_resolution_tpu_torch import build
+
+LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_13wgc13conv3x3_wgmmaILi64ELi32E13__nv_bfloat16EEv14CUtensorMap_stS3_NS0_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_13wgc13conv3x3_wgmmaILi64ELi32E13__nv_bfloat16EEv14CUtensorMap_stS3_NS0_6ParamsE
+    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads
+ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are serialized
+ptxas info    : Used 168 registers, used 1 barriers, 1024 bytes smem, 1056 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z9other_fnv' for 'sm_90a'
+ptxas info    : Function properties for _Z9other_fnv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, 384 bytes cmem[0]
+"""
+
+
+def test_parse_ptxas_reads_registers_smem_and_spills():
+    wg, other = build.parse_ptxas(LOG)
+    assert "conv3x3_wgmma" in wg["kernel"]
+    assert (wg["registers"], wg["smem_bytes"]) == (168, 1024)
+    assert (wg["spill_stores"], wg["spill_loads"]) == (8, 12)
+    assert len(wg["notes"]) == 1 and "serialized" in wg["notes"][0]
+    assert other == {"kernel": "_Z9other_fnv", "registers": 40,
+                     "smem_bytes": 0, "spill_stores": 0, "spill_loads": 0,
+                     "notes": []}
+    assert build.parse_ptxas("nvcc: nothing to report\n") == []
+
+
+def test_every_header_is_hashed(tmp_path, monkeypatch):
+    """An edited header gives every library a new name, so no stale
+    library is loaded after it changes."""
+    headers = sorted(f for f in os.listdir(build.CSRC) if f.endswith(".cuh"))
+    assert sorted(build.HEADERS) == headers
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", str(csrc))
+    before = {n: build.library_path(n) for n in build.SOURCES}
+    for h in headers:
+        with open(csrc / h, "a") as f:
+            f.write("\n// edited\n")
+        after = {n: build.library_path(n) for n in build.SOURCES}
+        assert all(after[n] != before[n] for n in build.SOURCES), h
+        before = after
+
+
+def _source(name):
+    with open(os.path.join(build.CSRC, name)) as f:
+        return f.read()
+
+
+@pytest.mark.parametrize("name", ["conv3x3.cu", "dense_block.cu"])
+def test_bf16_forward_runs_on_the_wgmma_tile(name):
+    src = _source(name)
+    assert '#include "conv3x3_wgmma.cuh"' in src
+    assert "conv_tile_bf16" not in src
+    assert "wgc::launch<__nv_bfloat16" in src
+
+
+def test_mma_sync_tile_serves_only_the_backward():
+    users = [n for n in os.listdir(build.CSRC)
+             if "conv_tile_bf16" in _source(n) and n != "conv3x3_tile.cuh"]
+    assert users == ["dense_block_bwd.cu"]
+    hopper = _source("conv3x3_wgmma.cuh")
+    for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor.4d",
+                "mbarrier.try_wait", "ldmatrix"):
+        assert ptx in hopper

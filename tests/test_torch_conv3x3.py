@@ -208,3 +208,26 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         err = RuntimeError
     with pytest.raises(err):
         c3_ops.conv3x3(x, w, b, **kw)
+
+
+def test_channel_pad_keeps_weights_per_version():
+    """conv_first's bf16 input is padded to 8 channels for the kernel's
+    TMA loads: zeros in the new channels, the padded weights kept on the
+    weight tensor until it changes, none kept for an inference tensor."""
+    c3 = c3_ops
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy(rng.standard_normal((1, 5, 6, 3), np.float32))
+    w = torch.from_numpy(rng.standard_normal((9, 16, 3), np.float32))
+    x, w = x.bfloat16(), w.bfloat16()
+    xp, wp = c3._pad_channels(x, w)
+    assert xp.shape == (1, 5, 6, 8) and wp.shape == (9, 16, 8)
+    assert xp.is_contiguous() and wp.is_contiguous()
+    assert torch.equal(xp[..., :3], x) and not xp[..., 3:].any()
+    assert torch.equal(wp[..., :3], w) and not wp[..., 3:].any()
+    assert c3._pad_channels(x, w)[1] is wp
+    w.mul_(2)
+    wp2 = c3._pad_channels(x, w)[1]
+    assert wp2 is not wp and torch.equal(wp2[..., :3], w)
+    with torch.inference_mode():
+        wi = w.clone()
+        assert c3._pad_channels(x, wi)[1] is not c3._pad_channels(x, wi)[1]

@@ -314,6 +314,16 @@ def _conv(shape, cout, dtype, device, seed=0):
     ((2, 19, 21, 3), 64, torch.float32, False, None),      # fp32 cin 3
     ((1, 37, 53, 64), 3, torch.float32, False, None),      # fp32 cout 3
     ((1, 18, 30, 32), 16, torch.bfloat16, True, torch.float32),
+    # the bf16 tile's load path: H, W not multiples of 16, a plane
+    # smaller than one tile, five K chunks with resident weights, weights
+    # streamed with the ring, two 128-channel groups of the upconv
+    ((2, 37, 53, 64), 64, torch.bfloat16, True, None),
+    ((1, 7, 9, 64), 32, torch.bfloat16, False, None),
+    ((2, 33, 17, 160), 32, torch.bfloat16, True, None),
+    ((1, 29, 45, 192), 64, torch.bfloat16, False, None),
+    ((2, 40, 48, 64), 256, torch.bfloat16, True, None),
+    ((1, 35, 30, 3), 64, torch.bfloat16, False, None),
+    ((1, 31, 50, 64), 3, torch.bfloat16, False, None),
 ])
 def test_conv3x3_kernel_matches_plain(cuda, shape, cout, dtype, act,
                                       out_dtype):
@@ -529,3 +539,49 @@ def test_lax_generator_on_the_card_matches_the_cpu(cuda):
         got = model.to(cuda).prepare(torch.float32)(x.to(cuda))
         assert [f.launches for f in counters] == before
     torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)
+
+
+# The bf16 forward's Hopper tile (csrc/conv3x3_wgmma.cuh) loads by TMA:
+# its tensor maps, not predicates, give the SAME padding, the cut at cin
+# and the ragged edge of a plane.
+
+@pytest.mark.parametrize("shape,growth,nhwc", [
+    ((2, 64, 37, 53), 32, False),
+    ((1, 64, 21, 19), 32, True),
+    ((1, 16, 23, 40), 8, False),
+])
+def test_block_reads_nothing_past_cin(cuda, shape, growth, nhwc):
+    """Every channel from a conv's cin upward (and so every slice not yet
+    written) is NaN before its launch: a read past cin would make y NaN."""
+    x, ws, bs = _block(shape, growth, torch.bfloat16, cuda, seed=5)
+    xin = x.permute(0, 2, 3, 1).contiguous() if nhwc else x
+    counter = type("Counter", (), {"launches": 0})
+    y, buf = db_ops._launch_block(counter, xin, x.permute(0, 2, 3, 1),
+                                  ws, bs, 0.2, 0.2, nhwc=nhwc, poison=True)
+    torch.cuda.synchronize()
+    assert counter.launches == LAUNCHES_PER_BLOCK
+    assert bool(torch.isfinite(buf.float()).all())
+    ref = dense_block_plain(x, ws, bs, res_scale=0.2, slope=0.2)
+    if nhwc:
+        ref = ref.permute(0, 2, 3, 1)
+    atol, rtol = TOL[torch.bfloat16]
+    torch.testing.assert_close(y.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+def test_conv3x3_prefix_of_one_buffer_into_a_slice_of_another(cuda):
+    """Channels [0, 64) of a 96-channel buffer in, channels [40, 72) of a
+    128-channel buffer out: both neighbours of the slice bit for bit as
+    they were, the input buffer untouched."""
+    gen = torch.Generator().manual_seed(6)
+    src = torch.randn(2, 21, 35, 96, generator=gen).to(cuda, torch.bfloat16)
+    dst = torch.randn(2, 21, 35, 128, generator=gen).to(cuda, torch.bfloat16)
+    _, w, b = _conv((1, 1, 1, 64), 32, torch.bfloat16, cuda, seed=7)
+    src0, dst0 = src.clone(), dst.clone()
+    conv3x3(src[..., :64], w, b, act=True, slope=0.2, out=dst[..., 40:72])
+    torch.cuda.synchronize()
+    assert torch.equal(src, src0)
+    assert torch.equal(dst[..., :40], dst0[..., :40])
+    assert torch.equal(dst[..., 72:], dst0[..., 72:])
+    want = conv3x3_plain(src[..., :64], w, b, act=True, slope=0.2)
+    torch.testing.assert_close(dst[..., 40:72].float(), want.float(),
+                               atol=2.0 ** -8, rtol=2.0 ** -7)
