@@ -24,11 +24,14 @@ and prints no result line:
    batches of the serve phase and the training shape), within the
    tolerances below; times in turns (plain, kernel, library, library,
    kernel, plain) with CUDA events, the bound and the roofline share.
-   Then the backward kernels (data gradient, weight gradient and its
-   reduction) against their plain version at five shapes (the training
-   shape (16, 64, 48, 48) bf16, odd fp32, growth 64 slope 0.01, narrow,
-   48 x 6): dx, every dW and db, two runs bit for bit, the same times
-   (library: autograd through five cuDNN convs) and the bound.
+   Then the backward kernels against their plain version at five shapes
+   (the training shape (16, 64, 48, 48) bf16, odd fp32, growth 64 slope
+   0.01, narrow, 48 x 6): in bf16 the Hopper design (a prep, the data
+   gradient as one gather launch of the Hopper tile per conv, the
+   weight gradient on wgmma, one reduction: 8 launches), in fp32 the
+   FMA kernels (15): dx, every dW and db, two runs bit for bit, the
+   launches, the same times (library: autograd through five cuDNN
+   convs), the kernels' device time and the bound.
 3. model: the full-width 23-block RRDBNet in bf16 on 8×128² LR tiles
    (seeded random weights) through ``train.steps.make_infer_fn``: the
    launch count of one forward, agreement with the same forward through
@@ -50,8 +53,9 @@ and prints no result line:
    kernels against the same step through the plain dense block
    (forward and backward), a warmup step likewise with every gradient
    tensor held, and a float32 GAN step at a small geometry per gradient
-   tensor; ms per step, HR MP/s, the device's idle share and
-   top operations from ``torch.profiler``, peak memory.
+   tensor; ms per step, HR MP/s, the device's idle share, top
+   operations and the backward kernels' ms per step by name from
+   ``torch.profiler``, peak memory.
 6. kernel-conv3x3: the single-conv kernel against its plain version at
    the flagship tail's shapes (8 x 64 x 128^2, 256^2, 512^2 -> 64), at
    conv_first (8, 128, 128, 3) -> 64 and conv_last (8, 512, 512, 64) ->
@@ -88,13 +92,20 @@ and prints no result line:
    kernel, rows 16 and 32 giving other values (band-local scales), ten
    launches per call, ms in turns with plain and the kernels' device
    time alone (``torch.profiler``), the int8 bound.
-12. tools: ``python -m super_resolution_tpu_torch.tools.kernel_bench
+12. contract: the dense block's calling contract at five geometries
+   (conv counts 3-5, channels and growth that are not multiples of 8,
+   widths above 64), bf16 and fp32: the forward NCHW and NHWC, the
+   backward (bit for bit twice), v3-v6 and v8 against their plain
+   versions at the tolerances above, launches by their formulas; and an
+   RRDBNet with 4 convs per dense block and growth 4 under auto and
+   pallas_fused against the same forward through the plain kernels.
+13. tools: ``python -m super_resolution_tpu_torch.tools.kernel_bench
    --variants lax,v3,v3b,v4,v5,v6,v8,v9`` and ``tools.model_bench`` over
    every variant (``--iters 3``) as subprocesses on the card: a time for
    every variant, no ``FAILED``, and per model forward 345 dense-block
    launches on each variant's own counter (+4 tail launches under
    ``ktail``), none under ``lax``.
-13. the ``kernels`` JSON line, the card's name and power limit as
+14. the ``kernels`` JSON line, the card's name and power limit as
    nvidia-smi prints them, then the ``ok`` JSON line last.
 
 It needs a CUDA card and the repository around it; without either it
@@ -216,17 +227,19 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def block_bound(shape, growth, dtype_name):
-    """(bound_ms, bound_by, flops, bytes) of one dense block: each input
-    (x, weights, biases) read once, y written once."""
+def block_convs(c, growth, n=5):
+    """(cin, cout) of each conv of an n-conv dense block."""
+    return [(c + k * growth, c if k == n - 1 else growth) for k in range(n)]
+
+
+def block_bound(shape, growth, dtype_name, n=5):
+    """(bound_ms, bound_by, flops, bytes) of one n-conv dense block: each
+    input (x, weights, biases) read once, y written once."""
     b, c, h, w = shape
     elt = 2 if dtype_name == "bfloat16" else 4
-    macs, wbytes, cin = 0, 0, c
-    for k in range(5):
-        cout = c if k == 4 else growth
-        macs += 9 * cin * cout
-        wbytes += 9 * cin * cout * elt + 4 * cout
-        cin += growth
+    convs = block_convs(c, growth, n)
+    macs = sum(9 * cin * cout for cin, cout in convs)
+    wbytes = sum(9 * cin * cout * elt + 4 * cout for cin, cout in convs)
     flops = 2 * b * h * w * macs
     nbytes = 2 * b * c * h * w * elt + wbytes
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], nbytes / PEAK_BYTES
@@ -274,7 +287,8 @@ def cudnn_block(x, ws_oihw, bs, slope=0.2):
 
 def ptxas_lines(build):
     """One line per library: what ptxas reported for each kernel of the
-    Hopper tile (conv3x3_wgmma<N, K chunk, output dtype>)."""
+    Hopper tile (conv3x3_wgmma<N, K chunk, output dtype>), and for the
+    bf16 backward's kernels."""
     import re
 
     pat = re.compile(r"conv3x3_wgmmaILi(\d+)ELi(\d+)E(13__nv_bfloat16|f)")
@@ -296,6 +310,26 @@ def ptxas_lines(build):
             fail(f"no ptxas report of the Hopper tile in {name}'s build")
         lines.append(f"[build] ptxas -v, {name}: conv3x3_wgmma"
                      + "; ".join(parts))
+    # the bf16 backward: the tile with the backward epilogues (the data
+    # gradient) and its own kernels
+    parts = []
+    for k in build.ptxas_report("dense_block_bwd"):
+        m = pat.search(k["kernel"])
+        name = (f"conv3x3_wgmma<{m.group(1)},{m.group(2)},f32,bwd>" if m
+                else next((n for n in ("wgrad_wgmma", "bwd_prep",
+                                       "bwd_reduce", "dgrad3x3", "wgrad3x3",
+                                       "wgrad_reduce")
+                           if n in k["kernel"]), None))
+        if name is None:
+            continue
+        parts.append(
+            f"{name} {k['registers']} regs, {k['smem_bytes']} B static "
+            f"smem, spills {k['spill_stores']}/{k['spill_loads']} B"
+            + (f", {len(k['notes'])} wgmma notes: {k['notes']}"
+               if k["notes"] else ""))
+    if not any("wgrad_wgmma" in p_ for p_ in parts):
+        fail("no ptxas report of wgrad_wgmma in dense_block_bwd's build")
+    lines.append("[build] ptxas -v, dense_block_bwd: " + "; ".join(parts))
     return lines
 
 
@@ -485,19 +519,20 @@ def kernel_phase():
     return results
 
 
-def bwd_bound(shape, growth, dtype_name):
-    """(bound_ms, bound_by, flops, bytes) of one dense block's backward:
-    twice the forward's operations (a data and a weight product per
-    conv); the saved feature buffer (x and x_1..x_4), the cotangent and
-    the weights read once, dx, dW (f32) and db written once."""
+def bwd_bound(shape, growth, dtype_name, n=5):
+    """(bound_ms, bound_by, flops, bytes) of one n-conv dense block's
+    backward: twice the forward's operations (a data and a weight product
+    per conv); the saved feature buffer (x and x_1..x_{n-1}, unpadded),
+    the cotangent and the weights read once, dx, dW (f32) and db written
+    once."""
     b, c, h, w = shape
     elt = 2 if dtype_name == "bfloat16" else 4
-    _, _, fwd_flops, _ = block_bound(shape, growth, dtype_name)
-    n_w = sum(9 * (c + k * growth) * (c if k == 4 else growth)
-              for k in range(5))
-    n_b = 4 * growth + c
+    _, _, fwd_flops, _ = block_bound(shape, growth, dtype_name, n)
+    convs = block_convs(c, growth, n)
+    n_w = sum(9 * cin * cout for cin, cout in convs)
+    n_b = sum(cout for _, cout in convs)
     pix = b * h * w
-    nbytes = (pix * (c + 4 * growth) * elt      # feature buffer
+    nbytes = (pix * (c + (n - 1) * growth) * elt   # feature buffer
               + 2 * pix * c * elt               # g in, dx out
               + n_w * elt                       # weights in
               + (n_w + n_b) * 4)                # dW, db out
@@ -513,7 +548,7 @@ def bwd_kernel_phase():
 
     from super_resolution_tpu_torch.device import no_tf32
     from super_resolution_tpu_torch.ops.dense_block import (
-        BWD_LAUNCHES_PER_BLOCK,
+        bwd_launches,
         dense_block,
         dense_block_bwd,
         plain_backward,
@@ -546,10 +581,10 @@ def bwd_kernel_phase():
                 before = dense_block_bwd.launches
                 dx, dws, dbs = dense_block_bwd(feats, ws, g, **kw)
                 torch.cuda.synchronize()
-                if dense_block_bwd.launches - before != \
-                        BWD_LAUNCHES_PER_BLOCK:
-                    fail(f"{name}: one backward counted "
-                         f"{dense_block_bwd.launches - before} launches")
+                launches = dense_block_bwd.launches - before
+                if launches != bwd_launches(5, dtype):
+                    fail(f"{name}: one backward counted {launches} "
+                         f"launches (want {bwd_launches(5, dtype)})")
                 rx, rws, rbs = plain_backward(feats, ws, g, **kw)
                 dx2, dws2, dbs2 = dense_block_bwd(feats, ws, g, **kw)
                 torch.cuda.synchronize()
@@ -601,7 +636,7 @@ def bwd_kernel_phase():
         results[name] = dict(
             shape=list(shape), growth=growth, dtype=dtype_name, slope=slope,
             rel_err=err, tol=tol, max_abs_err=max_abs,
-            repeats_bit_for_bit=repeats, ok=ok,
+            repeats_bit_for_bit=repeats, ok=ok, launches=launches,
             kernel_ms=ms["kernel"], kernels_device_ms=dev_ms,
             plain_ms=ms["plain"],
             library_ms=ms["library"], bound_ms=bound_ms, bound_by=bound_by,
@@ -721,7 +756,13 @@ def forward_flops(gcfg, b, h, w):
 
 # names of the port's own kernels in a profile (csrc/*.cu)
 OWN_KERNELS = ("conv3x3_", "dgrad3x3", "wgrad3x3", "wgrad_reduce",
-               "conv_int8", "amax_kernel")
+               "wgrad_wgmma", "bwd_prep", "bwd_reduce", "conv_int8",
+               "amax_kernel")
+# the bf16 backward's kernels (csrc/dense_block_bwd.cu): its data
+# gradient is the Hopper tile's conv3x3_wgmma with the backward epilogues
+# (template <N, K chunk, float, true>)
+BWD_KERNELS = {"dgrad_gather": "float, true>", "wgrad_wgmma": "wgrad_wgmma",
+               "bwd_prep": "bwd_prep", "bwd_reduce": "bwd_reduce"}
 
 
 def device_times(fn):
@@ -784,6 +825,9 @@ def profile_device(fn, ms, tag):
             n.split("(anonymous namespace)::")[1].split("(")[0]: t
             for n, t in sorted(by_name.items())
             if any(k in n for k in OWN_KERNELS)},
+        "bwd_kernels_ms": {
+            k: sum(t for n, t in by_name.items() if pat in n)
+            for k, pat in BWD_KERNELS.items()},
         "top_kernels_ms": {n[:90]: t for n, t in top},
         # where the host spends the call (under the profiler, which
         # slows the host: read the order, not the sizes)
@@ -1661,6 +1705,159 @@ def experiments_phase():
     return results
 
 
+# (n_convs, channels, growth): tests/test_pallas.py's general geometries,
+# widths that are not multiples of 8, widths above 64
+CONTRACT_GEOMETRIES = ((4, 8, 4), (5, 16, 4), (3, 8, 8), (5, 12, 6),
+                       (5, 96, 72))
+
+
+def contract_phase():
+    """The dense block's full calling contract on the card: at every
+    geometry of CONTRACT_GEOMETRIES, bf16 and fp32, the forward (NCHW and
+    NHWC), the backward (two runs bit for bit), v3–v6 and v8 against their
+    plain versions at the tolerances above, and launches by their
+    formulas; then the RRDBNet forward with 4 convs per block and growth
+    4 under auto and pallas_fused against the same forward through the
+    plain kernels."""
+    import importlib
+
+    import torch
+
+    import super_resolution_tpu_torch.models.rrdb as rrdb
+    from super_resolution_tpu_torch.config import GeneratorConfig
+    from super_resolution_tpu_torch.device import no_tf32
+
+    db = importlib.import_module(
+        "super_resolution_tpu_torch.ops.dense_block")
+    ex = importlib.import_module(
+        "super_resolution_tpu_torch.ops.experiments_dense_block")
+
+    class Uncounted:        # checks are not the main path
+        launches = 0
+
+    def close(got, want, tol):
+        atol, rtol = tol
+        d = (got.float() - want.float()).abs()
+        return (got.shape == want.shape
+                and bool(torch.isfinite(got.float()).all())
+                and (d - rtol * want.float().abs()).max().item() <= atol,
+                d.max().item())
+
+    def rel(got, want):
+        want = want.float()
+        return ((got.float() - want).abs().max()
+                / want.abs().max().clamp_min(1e-30)).item()
+
+    results, bad = {}, []
+    kw = dict(res_scale=0.2, slope=0.2)
+    for n, c, growth in CONTRACT_GEOMETRIES:
+        for dtype_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dtype_name)
+            name = f"n{n}_c{c}_g{growth}_{dtype_name}"
+            shape = (2, c, 40, 53)              # rows 8 divide H
+            gen = torch.Generator().manual_seed(700 + len(results))
+            x = torch.randn(shape, generator=gen).to("cuda", dtype)
+            g = torch.randn(shape, generator=gen).to("cuda", dtype)
+            hwio, bs = [], []
+            for cin_k, cout in block_convs(c, growth, n):
+                hwio.append((torch.randn(3, 3, cin_k, cout, generator=gen)
+                             * math.sqrt(2.0 / (9 * cin_k))).to("cuda",
+                                                                dtype))
+                bs.append((torch.randn(cout, generator=gen) * 0.1).cuda())
+            ws = [db.pack_weight(w.permute(3, 2, 0, 1)) for w in hwio]
+            res = {}
+            with torch.no_grad(), no_tf32():
+                f0 = db.dense_block.launches
+                y, feats = db.dense_block(x, ws, bs, save_acts=True, **kw)
+                y_nhwc = db.fused_dense_block(
+                    x.permute(0, 2, 3, 1).contiguous(), ws, bs, **kw)
+                b0 = db.dense_block_bwd.launches
+                dx, dws, dbs = db.dense_block_bwd(feats, ws, g, **kw)
+                dx2, dws2, dbs2 = db.dense_block_bwd(feats, ws, g, **kw)
+                torch.cuda.synchronize()
+                launches = (db.dense_block.launches - f0,
+                            (db.dense_block_bwd.launches - b0) // 2)
+                ref = db.dense_block_plain(x, ws, bs, **kw)
+                res["fwd"] = close(y, ref, TOL[dtype_name])
+                res["fwd_nhwc"] = close(y_nhwc.permute(0, 3, 1, 2), ref,
+                                        TOL[dtype_name])
+                rx, rws, rbs = db.plain_backward(feats, ws, g, **kw)
+                tol = BWD_TOL[dtype_name]
+                err = dict(dx=rel(dx, rx),
+                           dw=max(rel(a, b_) for a, b_ in zip(dws, rws)),
+                           db=max(rel(a, b_) for a, b_ in zip(dbs, rbs)))
+                repeats = torch.equal(dx, dx2) and all(
+                    torch.equal(a, b_)
+                    for a, b_ in zip(dws + dbs, dws2 + dbs2))
+                res["bwd"] = (all(err[k] <= tol[k] for k in err) and repeats,
+                              err["dx"])
+                for v in ("cf", "cf2", "cf3", "cf6"):
+                    fn = getattr(ex, f"fused_dense_block_{v}")
+                    res[v] = close(fn(x, hwio, bs, rows=8), ref,
+                                   TOL[dtype_name])
+                y8 = ex.fused_dense_block_cf8(x, hwio, bs, rows=8)
+                r8 = ex.fused_dense_block_cf8_plain(x, hwio, bs, rows=8)
+                ulp = 2.0 ** -7 if dtype_name == "bfloat16" else 2.0 ** -23
+                d8 = (y8.float() - r8.float()).abs()
+                res["cf8"] = (bool(torch.isfinite(y8.float()).all()) and bool(
+                    (d8 <= ulp * r8.float().abs()).all()), d8.max().item())
+            want = (db.fwd_launches(n), db.bwd_launches(n, dtype))
+            ok = all(v[0] for v in res.values()) and launches == want
+            results[name] = dict(
+                shape=list(shape), n_convs=n, growth=growth, ok=ok,
+                launches=list(launches), want_launches=list(want),
+                bwd_rel_err=err, bwd_repeats_bit_for_bit=repeats,
+                max_abs_err={k: v[1] for k, v in res.items()},
+                failed=[k for k, v in res.items() if not v[0]])
+            print("[contract] " + json.dumps({name: results[name]}),
+                  flush=True)
+            if not ok:
+                bad.append(name)
+
+    # the model with 4 convs per dense block and growth 4
+    for impl in ("auto", "pallas_fused"):
+        gcfg = GeneratorConfig(n_blocks=2, filters=8, growth=4,
+                               n_dense_convs=4, init=SEED_INIT,
+                               conv_impl=impl)
+        model = rrdb.RRDBNet(gcfg, torch.Generator().manual_seed(3)).cuda()
+        x = torch.randn(2, 40, 52, 3, generator=torch.Generator()
+                        .manual_seed(4)).cuda()
+        out = {}
+        for dtype_name in ("bfloat16", "float32"):
+            model.prepare(getattr(torch, dtype_name))
+            with torch.inference_mode():
+                counter = db.dense_block if impl == "auto" \
+                    else db.fused_dense_block
+                before = counter.launches
+                got = model(x)
+                torch.cuda.synchronize()
+                launches = counter.launches - before
+                with PlainKernels():
+                    ref = model(x)
+            rng_ = (ref.max() - ref.min()).item()
+            mse = ((got - ref) ** 2).mean().item()
+            psnr = 10 * math.log10(rng_ ** 2 / mse) if mse > 0 \
+                else float("inf")
+            atol, rtol = FP32_MODEL_TOL
+            worst = ((got - ref).abs() - rtol * ref.abs()).max().item()
+            ok = (tuple(got.shape) == (2, 160, 208, 3)
+                  and bool(torch.isfinite(got).all())
+                  and launches == 2 * gcfg.n_dense * 4
+                  and (psnr >= BF16_MODEL_PSNR_FLOOR_DB
+                       if dtype_name == "bfloat16" else worst <= atol))
+            out[dtype_name] = dict(ok=ok, psnr_db=psnr, launches=launches,
+                                   max_abs_err=(got - ref).abs().max()
+                                   .item())
+        name = f"rrdbnet_n4_g4_{impl}"
+        results[name] = out
+        print("[contract] " + json.dumps({name: out}), flush=True)
+        if not all(v["ok"] for v in out.values()):
+            bad.append(name)
+    if bad:
+        fail(f"the dense block's contract failed on the card: {bad}")
+    return results
+
+
 def int8_bound(shape, growth, rows, dtype_name):
     """(bound_ms, bound_by, ops, bytes) of the int8 block: every band's
     convs over its own window rows (the halo recompute counted) at the
@@ -1925,6 +2122,7 @@ def main() -> int:
     lax_train = lax_train_phase()
     experiments = experiments_phase()
     int8 = int8_phase()
+    contract_phase()
     tools = tools_phase()
     print("[impls] lax: " + json.dumps({
         "forward": impls["lax"], "cli": impls["cli_lax"],
@@ -1955,6 +2153,7 @@ def main() -> int:
         "source": "super_resolution_tpu_torch/csrc/dense_block_bwd.cu",
         "replaces": REPLACES_BWD,
         "launches": train["bwd_launches"],        # cli train
+        "launches_per_block": bwd["launches"],
         "max_abs_err": bwd["max_abs_err"],
         "ms": bwd["kernel_ms"],
         "plain_ms": bwd["plain_ms"],

@@ -108,7 +108,7 @@ int launch_f32(Args a, int batch, cudaStream_t stream) {
   a.n_groups = (a.c.cout + 8 * NT - 1) / (8 * NT);
   if ((long long)batch * a.n_groups > 65535)
     return (int)cudaErrorInvalidValue;
-  return launch(single_conv3x3_f32<NT>, conv_tile_smem(false, 8 * NT), a,
+  return launch(single_conv3x3_f32<NT>, conv_tile_smem(8 * NT), a,
                 batch, stream);
 }
 

@@ -2,9 +2,10 @@
 // rings of shared-memory stages, wgmma on the tensor cores, an epilogue
 // staged through shared memory.  Both forward kernels run on it:
 // csrc/conv3x3.cu (one conv, channels-last in and out) and
-// csrc/dense_block.cu (the five convs of a dense block).  The backward's
-// data gradient and the f32 paths keep the mma.sync / FMA tile of
-// conv3x3_tile.cuh.
+// csrc/dense_block.cu (the convs of a dense block); so does the bf16
+// backward's data gradient (csrc/dense_block_bwd.cu), a conv over the
+// channel range of its dz buffer, with the epilogues of kBwd below.  The
+// f32 paths keep the FMA tile of conv3x3_tile.cuh.
 //
 // The conv is an implicit GEMM: M = the pixels of an output unit (16x16,
 // or 16 wide x 8 high at N = 128), N = output channels (8, 16, 32, 64 or
@@ -103,6 +104,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 namespace wgc {
@@ -125,7 +127,7 @@ constexpr int kMaxChunkK = 64;                 // channels per K chunk
 __host__ __device__ constexpr int m_blocks(int n) { return n <= 64 ? 4 : 2; }
 
 // N for cout output channels: the whole cout up to 64, else groups of
-// max_n
+// max_n (64 or 128)
 constexpr int pick_n(int cout, int max_n) {
   return cout <= 8 ? 8 : cout <= 16 ? 16 : cout <= 32 ? 32
        : cout <= 64 || max_n <= 64 ? 64 : 128;
@@ -135,6 +137,9 @@ constexpr int pick_n(int cout, int max_n) {
 constexpr int kStore = 0;            // bias, optional LeakyReLU, store
 constexpr int kResidualNCHW = 1;     // y = x + res_scale * conv, NCHW
 constexpr int kResidualNHWC = 2;     // the same, NHWC
+// the backward's data gradient (kBwd kernels; no bias, acc staged in f32)
+constexpr int kBwdAct = 3;   // dout = acc * leak(act): dz (bf16), db slots
+constexpr int kBwdDx = 4;    // dx = round(g + acc), NCHW
 
 // Everything a launch needs on the device besides the two tensor maps.
 struct Params {
@@ -155,6 +160,22 @@ struct Params {
   float res_scale;
   int vec_out;                   // 16-byte stores are aligned
 };
+
+// The backward's kernels take these fields besides (kBwdAct: the saved
+// activation at channel 0 of the slice of pixel 0, pixel stride
+// act_stride; dz out likewise; db partial sums [group][unit][warp][N]).
+// A separate type, so the forward kernels' parameters stay as they were:
+// a larger Params slowed the single conv's 64- and 128-wide
+// instantiations on an H100.
+struct BwdParams : Params {
+  const void* act_in;
+  int act_stride;
+  void* dz;
+  int dz_stride;
+  float* db_part;
+};
+template <bool kBwd>
+using ParamsOf = typename std::conditional<kBwd, BwdParams, Params>::type;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -509,7 +530,7 @@ __device__ __forceinline__ void epilogue(const Params& p,
         if (p.mode == kResidualNHWC) {
           alignas(16) Tout xv[kVec];
           *reinterpret_cast<uint4*>(xv) =
-              *reinterpret_cast<const uint4*>(res + pix * p.cout + q);
+              *reinterpret_cast<const uint4*>(res + pix * p.cout + n0 + q);
 #pragma unroll
           for (int j = 0; j < kVec; ++j) v[j] = residual(p, xv[j], v[j]);
         }
@@ -523,7 +544,7 @@ __device__ __forceinline__ void epilogue(const Params& p,
         const size_t pix = row_pix + ox0 + px;
         Tout v = st[px * kRow + c];
         if (p.mode == kResidualNHWC)
-          v = residual(p, res[pix * p.cout + c], v);
+          v = residual(p, res[pix * p.cout + n0 + c], v);
         out[pix * p.c_out + n0 + c] = v;
       }
     }
@@ -531,15 +552,121 @@ __device__ __forceinline__ void epilogue(const Params& p,
   __syncwarp();
 }
 
+// The backward's epilogue of M block ``mb`` (kBwdAct or kBwdDx): the f32
+// accumulators, with no bias, staged per warp (16 pixels x N floats, rows
+// padded by 16 bytes), then
+// - kBwdAct: per 8 channels of a pixel, dout = acc * (act > 0 ? 1 :
+//   slope) from the saved activation (the slope branch at exactly 0, as
+//   the TPU kernel takes it), dz = dout rounded to bf16 as one 16-byte
+//   store, and dout added unrounded into this lane's db sums;
+// - kBwdDx: dx = round(g + acc) in NCHW, g read the same way (one
+//   rounding, of the final sum).
+// Lane l always handles the channels q = 8 (l % (N / 8)) of its items,
+// so its db sums belong to those 8 channels.
+template <int N>
+__device__ __forceinline__ void bwd_epilogue(const BwdParams& p,
+                                             const float (&acc)[N / 2],
+                                             float* st, int b, int oy,
+                                             int ox0, int n0, int lane,
+                                             float (&db)[8]) {
+  constexpr int kRow = N + 4;                  // staging row, floats
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < N / 2; i += 2) {
+    const int col = 8 * (i >> 2) + 2 * t, row = g + 8 * ((i >> 1) & 1);
+    *reinterpret_cast<float2*>(st + row * kRow + col) =
+        make_float2(acc[i], acc[i + 1]);
+  }
+  __syncwarp();
+  if (oy < p.h) {
+    const int nvalid = min(N, p.cout - n0);
+    if (p.mode == kBwdAct) {
+      constexpr int kPer = N / 8;
+      const size_t row_pix = ((size_t)b * p.h + oy) * p.w;
+      for (int it = lane; it < 16 * kPer; it += 32) {
+        const int px = it / kPer, q = (it % kPer) * 8;
+        if (ox0 + px >= p.w || q >= nvalid) continue;
+        const size_t pix = row_pix + ox0 + px;
+        alignas(16) __nv_bfloat16 a[8], z[8];
+        *reinterpret_cast<uint4*>(a) = *reinterpret_cast<const uint4*>(
+            static_cast<const __nv_bfloat16*>(p.act_in) + pix * p.act_stride +
+            n0 + q);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float v = st[px * kRow + q + j];
+          if (!(__bfloat162float(a[j]) > 0.f)) v = __fmul_rn(p.slope, v);
+          db[j] = __fadd_rn(db[j], v);
+          z[j] = __float2bfloat16_rn(v);
+        }
+        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(p.dz) +
+                                  pix * p.dz_stride + n0 + q) =
+            *reinterpret_cast<const uint4*>(z);
+      }
+    } else {
+      // dx[b][n][oy][ox]: runs of 8 pixels of one channel
+      const size_t plane = (size_t)p.h * p.w;
+      __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+      const __nv_bfloat16* gr = static_cast<const __nv_bfloat16*>(p.res);
+      for (int it = lane; it < 2 * nvalid; it += 32) {
+        const int c = it >> 1, px0 = 8 * (it & 1);
+        const size_t i0 = ((size_t)b * p.cout + n0 + c) * plane +
+                          (size_t)oy * p.w + ox0 + px0;
+        if (p.vec_out && ox0 + px0 + 8 <= p.w) {
+          alignas(16) __nv_bfloat16 gv[8], yv[8];
+          *reinterpret_cast<uint4*>(gv) =
+              *reinterpret_cast<const uint4*>(gr + i0);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            yv[j] = __float2bfloat16_rn(__fadd_rn(
+                __bfloat162float(gv[j]), st[(px0 + j) * kRow + c]));
+          *reinterpret_cast<uint4*>(out + i0) =
+              *reinterpret_cast<const uint4*>(yv);
+        } else {
+          for (int j = 0; j < 8 && ox0 + px0 + j < p.w; ++j)
+            out[i0 + j] = __float2bfloat16_rn(__fadd_rn(
+                __bfloat162float(gr[i0 + j]), st[(px0 + j) * kRow + c]));
+        }
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// kBwdAct, after a unit's M blocks: the lanes of each 8 channels add
+// their db sums in a fixed order (xor steps over the lanes that share
+// them), and the first lane of each writes slot (group, unit, warp w).
+template <int N>
+__device__ __forceinline__ void bwd_db_slot(const BwdParams& p,
+                                            float (&db)[8],
+                                            int unit, int w, int n0,
+                                            int lane) {
+  constexpr int kPer = N / 8;
+#pragma unroll
+  for (int o = 16; o >= kPer; o >>= 1)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      db[j] = __fadd_rn(db[j], __shfl_xor_sync(0xffffffffu, db[j], o));
+  if (lane < kPer) {
+    float* slot = p.db_part +
+                  ((((size_t)(n0 / N) * p.tiles + unit) * 4 + w) * N) +
+                  8 * lane;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) slot[j] = db[j];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) db[j] = 0.f;
+}
+
 // Grid: n_groups x slots blocks; block (slot, group) computes output
 // channels [group * N, + N) of units slot, slot + slots, ...; its k-th
 // unit goes to warpgroup k % 2, each warpgroup with a ring of its own,
-// so one warpgroup's epilogue overlaps the other's products.
-template <int N, int KC, typename Tout>
+// so one warpgroup's epilogue overlaps the other's products.  kBwd: the
+// backward's epilogues (Tout = float, the staging type).
+template <int N, int KC, typename Tout, bool kBwd>
 __global__ void __launch_bounds__(kThreads, 1)
     conv3x3_wgmma(const __grid_constant__ CUtensorMap tm_x,
                   const __grid_constant__ CUtensorMap tm_w,
-                  const Params p) {
+                  const ParamsOf<kBwd> p) {
   constexpr int MB = m_blocks(N);
   constexpr int kUnitH = 4 * MB;                 // output rows per unit
   extern __shared__ unsigned char smem_raw[];
@@ -574,7 +701,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int slots = gridDim.x / p.n_groups;
   const int n0 = (blockIdx.x % p.n_groups) * N;
   for (int n = threadIdx.x; n < N; n += kThreads)
-    bias[n] = n0 + n < p.cout ? p.bias[n0 + n] : 0.f;
+    bias[n] = !kBwd && n0 + n < p.cout ? p.bias[n0 + n] : 0.f;
   __syncthreads();
   // the next launch may start its blocks as this one's finish (it is
   // launched with programmatic stream serialization, as this one is)
@@ -638,6 +765,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         smem_raw + (base - raw) + staging_at +
         warp * warp_stage_bytes(N, sizeof(Tout)));
     float acc[MB][N / 2];
+    float db[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     int stage = 0;
     uint32_t phase = 0;
     for (int k = g;; k += 2) {
@@ -665,10 +793,18 @@ __global__ void __launch_bounds__(kThreads, 1)
           phase ^= 1;
         }
       }
+      if constexpr (kBwd) {
 #pragma unroll
-      for (int mb = 0; mb < MB; ++mb)
-        epilogue<N, Tout>(p, acc[mb], bias, st, b, y0 + MB * w + mb, x0, n0,
-                          lane);
+        for (int mb = 0; mb < MB; ++mb)
+          bwd_epilogue<N>(p, acc[mb], st, b, y0 + MB * w + mb, x0, n0, lane,
+                          db);
+        if (p.mode == kBwdAct) bwd_db_slot<N>(p, db, unit, w, n0, lane);
+      } else {
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb)
+          epilogue<N, Tout>(p, acc[mb], bias, st, b, y0 + MB * w + mb, x0,
+                            n0, lane);
+      }
     }
   }
 }
@@ -693,6 +829,12 @@ struct Conv {
   const void* res;
   float res_scale;
   int batch, h, w_img;
+  // kBwdAct (see Params)
+  const void* act_in;
+  int act_stride;
+  void* dz;
+  int dz_stride;
+  float* db_part;
 };
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
@@ -763,11 +905,11 @@ inline bool make_plan(int n, int patch_rows, int cin, uint32_t staging,
   return false;
 }
 
-template <int N, int KC, typename Tout>
+template <int N, int KC, typename Tout, bool kBwd>
 int launch_kernel(const CUtensorMap& tx, const CUtensorMap& tw,
-                  const Params& p, const Plan& pl, int grid, int dev,
+                  const ParamsOf<kBwd>& p, const Plan& pl, int grid, int dev,
                   cudaStream_t stream) {
-  auto kernel = conv3x3_wgmma<N, KC, Tout>;
+  auto kernel = conv3x3_wgmma<N, KC, Tout, kBwd>;
   // the attribute once per device: every plan stays within kMaxSmem
   static uint64_t set_on;                 // bit d: device d
   const uint64_t bit = dev < 64 ? 1ull << dev : 0;
@@ -794,7 +936,7 @@ int launch_kernel(const CUtensorMap& tx, const CUtensorMap& tw,
   return (int)cudaGetLastError();
 }
 
-template <int N, typename Tout>
+template <int N, typename Tout, bool kBwd>
 int launch_n(const Conv& c, cudaStream_t stream) {
   Plan pl;
   constexpr int kUnitH = 4 * m_blocks(N);
@@ -829,7 +971,7 @@ int launch_n(const Conv& c, cudaStream_t stream) {
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return (int)cudaErrorInvalidValue;
 
-  Params p{};
+  ParamsOf<kBwd> p{};
   p.cin = c.cin;
   p.cout = c.cout;
   p.h = c.h;
@@ -851,10 +993,19 @@ int launch_n(const Conv& c, cudaStream_t stream) {
   p.mode = c.mode;
   p.res = c.res;
   p.res_scale = c.res_scale;
-  constexpr int kVec = 16 / sizeof(Tout);
+  if constexpr (kBwd) {
+    p.act_in = c.act_in;
+    p.act_stride = c.act_stride;
+    p.dz = c.dz;
+    p.dz_stride = c.dz_stride;
+    p.db_part = c.db_part;
+  }
+  // elements per 16-byte store: the backward writes bf16 from f32 staging
+  constexpr int kVec = kBwd ? 8 : 16 / sizeof(Tout);
   const bool aligned = (uintptr_t)c.out % 16 == 0 &&
-                       (c.mode == kStore || (uintptr_t)c.res % 16 == 0);
-  p.vec_out = aligned && (c.mode == kResidualNCHW
+                       (c.mode == kStore || c.mode == kBwdAct ||
+                        (uintptr_t)c.res % 16 == 0);
+  p.vec_out = aligned && (c.mode == kResidualNCHW || c.mode == kBwdDx
                               ? c.w_img % kVec == 0
                               : c.c_out % kVec == 0 && c.cout % kVec == 0);
 
@@ -874,27 +1025,28 @@ int launch_n(const Conv& c, cudaStream_t stream) {
       1, std::min(p.tiles, (n_sm + p.n_groups - 1) / p.n_groups));
   const int grid = slots * p.n_groups;
   if (pl.kc == 64)
-    return launch_kernel<N, 64, Tout>(tx, tw, p, pl, grid, dev, stream);
+    return launch_kernel<N, 64, Tout, kBwd>(tx, tw, p, pl, grid, dev, stream);
   if (pl.kc == 32)
-    return launch_kernel<N, 32, Tout>(tx, tw, p, pl, grid, dev, stream);
-  return launch_kernel<N, 16, Tout>(tx, tw, p, pl, grid, dev, stream);
+    return launch_kernel<N, 32, Tout, kBwd>(tx, tw, p, pl, grid, dev, stream);
+  return launch_kernel<N, 16, Tout, kBwd>(tx, tw, p, pl, grid, dev, stream);
 }
 
 // The launch, N picked from cout (the whole of it up to 64, else groups
-// of 128).  kMaxN bounds the instantiated widths.
-template <typename Tout, int kMaxN>
+// of kMaxN).  kMaxN bounds the instantiated widths; kBwd picks the
+// backward's epilogues.
+template <typename Tout, int kMaxN, bool kBwd = false>
 int launch(const Conv& c, cudaStream_t stream) {
   if (c.cin < 8 || c.cin % 8 || c.c_total % 8 || c.cin > c.c_total ||
       c.cout < 1 || c.batch < 1 || c.h < 1 || c.w_img < 1 ||
       (uintptr_t)c.in % 16 || (uintptr_t)c.w % 16)
     return (int)cudaErrorInvalidValue;
   switch (pick_n(c.cout, kMaxN)) {
-    case 8: return launch_n<8, Tout>(c, stream);
-    case 16: return launch_n<16, Tout>(c, stream);
-    case 32: return launch_n<32, Tout>(c, stream);
-    case 64: return launch_n<64, Tout>(c, stream);
+    case 8: return launch_n<8, Tout, kBwd>(c, stream);
+    case 16: return launch_n<16, Tout, kBwd>(c, stream);
+    case 32: return launch_n<32, Tout, kBwd>(c, stream);
+    case 64: return launch_n<64, Tout, kBwd>(c, stream);
   }
-  return launch_n<(kMaxN > 64 ? 128 : 64), Tout>(c, stream);
+  return launch_n<(kMaxN > 64 ? 128 : 64), Tout, kBwd>(c, stream);
 }
 
 }  // namespace wgc

@@ -4,20 +4,21 @@
 // Replaces the TPU kernel
 //   super_resolution_tpu/ops/pallas/experiments_dense_block.py:
 //   fused_dense_block_cf8 (v8, _kernel8)
-// and computes exactly what it computes.  The image is cut into bands of
-// `rows` rows; band i reads image rows [i*rows - 5, i*rows + rows + 5)
-// (zero rows outside the image) and recomputes its halo rows itself.
-// For conv k (0-based) of band i:
+// and computes exactly what it computes.  With n convs (any n >= 1; the
+// halo is n rows), the image is cut into bands of `rows` rows; band i
+// reads image rows [i*rows - n, i*rows + rows + n) (zero rows outside the
+// image) and recomputes its halo rows itself.  For conv k (0-based) of
+// band i:
 //   s_x   = max(amax, 1e-6) * (1/127), the amax over the conv's input
-//           window (band rows [k, rows + 10 - k), every input channel,
+//           window (band rows [k, rows + 2n - k), every input channel,
 //           the full width) -- one scale per (image, band, conv);
 //   q     = clip(rint(v * (1 / s_x)), -127, 127), round half to even;
 //   A_dx  = sum over (dy, c) of wq[dx*F + f][dy*C + c] * q, in int32;
 //   out   = (fma(A_1, s_w1 * s_x, A_0 * (s_w0 * s_x)) + A_2 * (s_w2 *
 //           s_x)) + b, in f32, each dx term dequantized on its own
-//           before the shift-add, then LeakyReLU (k < 4), zero outside
-//           the image rows, rounded to x's dtype;
-//   conv5 is rounded to x's dtype before the f32 residual with x.
+//           before the shift-add, then LeakyReLU (k < n - 1), zero
+//           outside the image rows, rounded to x's dtype;
+//   the last conv is rounded to x's dtype before the f32 residual with x.
 // Every f32 step is an explicit intrinsic (__fmul_rn, __fadd_rn,
 // __fdiv_rn, and the one __fmaf_rn), so nvcc contracts nothing on its
 // own.  The FMA and the constant 1/127 are what XLA makes of the JAX
@@ -29,11 +30,15 @@
 // zero-padded to a multiple of 32, and the (3F) float scales.
 //
 // Layout.  The wrapper fills a banded channels-last buffer (B * n_bands,
-// rows + 10, W, C + 4G) with x in channels [0, C); conv k reads the
+// rows + 2n, W, C + (n-1)G) with x in channels [0, C); conv k reads the
 // channel prefix [0, C + kG) of its window and writes rows [k + 1, rows +
-// 9 - k) of the next channel slice; conv 5 writes y (NCHW).  Bands never
-// share a row: a halo row has another value in each band that computes
-// it, which is why the result depends on `rows`.
+// 2n - 1 - k) of the next channel slice; the last conv writes y (NCHW).
+// Bands never share a row: a halo row has another value in each band that
+// computes it, which is why the result depends on `rows`.  Channels come
+// in 8-channel pieces: the wrapper pads C and G to multiples of 8 inside
+// the buffer and the weights with zeros, which leaves every amax, every
+// weight scale and every int32 sum as it was.  Outputs wider than 64
+// channels take several blocks (grid z).
 //
 // Bound.  At (8, 64, 128, 128) bf16, rows 16, the block's work with the
 // band recompute is sum_k out_rows_k * cin_k * cout_k * 9 * 2 * W * B *
@@ -57,7 +62,6 @@
 
 namespace {
 
-constexpr int kHalo = 5;
 constexpr int kTileH = 8;                     // output rows per block
 constexpr int kTileW = 16;                    // output columns per block
 constexpr int kPatchW = kTileW + 2;
@@ -159,33 +163,37 @@ __global__ void __launch_bounds__(kThreads)
 struct Int8Conv {
   void* buf;               // (B * n_bands, band_rows, W, c_total)
   int c_total, cin, k;     // the input is channels [0, cin); conv index k
+  int halo;                // rows a band reads above and below: n convs
   const int8_t* wq;        // (3 dy, 3 dx, cout, cpad)
   int cpad;
   const float* sw;         // (3 * cout): the scale of row dx * cout + n
   const float* bias;       // (cout)
   int cout;
-  void* y;                 // conv 5: y, NCHW
-  const void* x;           // conv 5: x, NCHW (the residual)
+  void* y;                 // the last conv: y, NCHW
+  const void* x;           // the last conv: x, NCHW (the residual)
   int n_bands, rows, h, w_img;
   float slope, res_scale;
   int last;
   const unsigned* amax;    // (B * n_bands) float bits
+  int n_groups;            // blocks along the output channels
 };
 
-// One conv of the int8 block: grid (W / 16, out_rows / 8, B * n_bands).
+// One conv of the int8 block: grid (W / 16, out_rows / 8, B * n_bands *
+// n_groups), output channels [n0, n0 + N) a block.
 // NT = 8-wide output-channel tiles (channels past cout have zero weights).
 // Warp w owns output row y0 + w: one m16 tile of 16 pixels.  acc[dx][nt][r]:
 // r = 0, 1 -> pixel column g, r = 2, 3 -> column g + 8; output channel
-// nt * 8 + 2t + (r & 1), with g = lane >> 2, t = lane & 3.
+// n0 + nt * 8 + 2t + (r & 1), with g = lane >> 2, t = lane & 3.
 template <typename T, int NT>
 __global__ void __launch_bounds__(kThreads) conv_int8(Int8Conv a) {
   constexpr int N = 8 * NT;
   __shared__ __align__(16) uint32_t sx[kPatch * kRowWords];
   __shared__ __align__(16) uint32_t sw[9 * N * kRowWords];
 
-  const int bb = blockIdx.z;
+  const int bb = blockIdx.z / a.n_groups;
+  const int n0 = (blockIdx.z % a.n_groups) * N;
   const int band = bb % a.n_bands, b = bb / a.n_bands;
-  const int band_rows = a.rows + 2 * kHalo;
+  const int band_rows = a.rows + 2 * a.halo;
   const int out_rows = band_rows - 2 * a.k - 2;
   const int y0 = blockIdx.y * kTileH, x0 = blockIdx.x * kTileW;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -224,7 +232,7 @@ __global__ void __launch_bounds__(kThreads) conv_int8(Int8Conv a) {
     // the weights of this chunk: row tap * N + n, 32 channels
     for (int i = tid; i < 9 * N * 2; i += kThreads) {
       const int row = i >> 1, half = i & 1;
-      const int tap = row / N, n = row - tap * N;
+      const int tap = row / N, n = n0 + row - tap * N;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
       if (n < a.cout)
         v = *reinterpret_cast<const uint4*>(
@@ -256,7 +264,7 @@ __global__ void __launch_bounds__(kThreads) conv_int8(Int8Conv a) {
 
   const int oy = y0 + warp;
   if (oy >= out_rows) return;
-  const int img_row = band * a.rows - (kHalo - a.k - 1) + oy;
+  const int img_row = band * a.rows - (a.halo - a.k - 1) + oy;
   const bool in_img = img_row >= 0 && img_row < a.h;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -264,12 +272,10 @@ __global__ void __launch_bounds__(kThreads) conv_int8(Int8Conv a) {
     if (ox >= a.w_img) continue;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
-      const int n = nt * 8 + 2 * t;              // n + 1 < cout with n
-      if (n >= a.cout) continue;
-      T o[2];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int ch = n + e, r = 2 * half + e;
+        const int ch = n0 + nt * 8 + 2 * t + e, r = 2 * half + e;
+        if (ch >= a.cout) continue;
         const float left = __fmul_rn(__int2float_rn(acc[0][nt][r]),
                                      __fmul_rn(a.sw[ch], s_x));
         const float mid = __fmaf_rn(__int2float_rn(acc[1][nt][r]),
@@ -278,25 +284,19 @@ __global__ void __launch_bounds__(kThreads) conv_int8(Int8Conv a) {
                                       __fmul_rn(a.sw[2 * a.cout + ch], s_x));
         float v = __fadd_rn(__fadd_rn(mid, right), a.bias[ch]);
         if (!a.last && !(v >= 0.f)) v = __fmul_rn(a.slope, v);
-        o[e] = from_f32<T>(in_img ? v : 0.f);
-      }
-      if (a.last) {
-        // y = x + res_scale * conv5, NCHW, the image row of this band
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
+        const T o = from_f32<T>(in_img ? v : 0.f);
+        if (a.last) {
+          // y = x + res_scale * conv_n, NCHW, the image row of this band
           const size_t i =
-              (((size_t)b * a.cout + n + e) * a.h + img_row) * a.w_img + ox;
+              (((size_t)b * a.cout + ch) * a.h + img_row) * a.w_img + ox;
           const float xv = to_f32(static_cast<const T*>(a.x)[i]);
           static_cast<T*>(a.y)[i] = from_f32<T>(
-              __fadd_rn(xv, __fmul_rn(a.res_scale, to_f32(o[e]))));
+              __fadd_rn(xv, __fmul_rn(a.res_scale, to_f32(o))));
+        } else {
+          static_cast<T*>(a.buf)[(((size_t)bb * band_rows + a.k + 1 + oy) *
+                                      a.w_img + ox) * a.c_total + a.cin +
+                                 ch] = o;
         }
-      } else {
-        T* out = static_cast<T*>(a.buf) +
-                 (((size_t)bb * band_rows + a.k + 1 + oy) * a.w_img + ox) *
-                     a.c_total +
-                 a.cin + n;
-        out[0] = o[0];
-        out[1] = o[1];
       }
     }
   }
@@ -309,9 +309,14 @@ int launch(Kernel kernel, dim3 grid, cudaStream_t stream, Args... args) {
 }
 
 template <typename T>
-int conv_nt(const Int8Conv& a, dim3 grid, cudaStream_t s) {
-  if (a.cout <= 16) return launch(conv_int8<T, 2>, grid, s, a);
-  if (a.cout <= 32) return launch(conv_int8<T, 4>, grid, s, a);
+int conv_nt(Int8Conv a, dim3 grid, cudaStream_t s) {
+  const int nt = a.cout <= 16 ? 2 : a.cout <= 32 ? 4 : 8;
+  a.n_groups = (a.cout + 8 * nt - 1) / (8 * nt);
+  if ((long long)grid.z * a.n_groups > 65535)
+    return (int)cudaErrorInvalidValue;
+  grid.z *= a.n_groups;
+  if (nt == 2) return launch(conv_int8<T, 2>, grid, s, a);
+  if (nt == 4) return launch(conv_int8<T, 4>, grid, s, a);
   return launch(conv_int8<T, 8>, grid, s, a);
 }
 
@@ -320,13 +325,13 @@ int conv_nt(const Int8Conv& a, dim3 grid, cudaStream_t s) {
 // The amax of conv k's window in every band into amax (B * n_bands
 // unsigned ints, zeroed by the wrapper).  Returns cudaGetLastError().
 extern "C" int dense_block_int8_amax(int is_bf16, const void* buf,
-                                     int c_total, int cin, int k, int rows,
-                                     int n_bb, int w_img, void* amax,
-                                     void* stream) {
+                                     int c_total, int cin, int k, int halo,
+                                     int rows, int n_bb, int w_img,
+                                     void* amax, void* stream) {
   if (cin < 8 || cin % 8 || c_total % 8 || cin > c_total || k < 0 ||
-      k > 4 || rows < 5 || n_bb < 1 || n_bb > 65535 || w_img < 1)
+      k >= halo || rows < 5 || n_bb < 1 || n_bb > 65535 || w_img < 1)
     return (int)cudaErrorInvalidValue;
-  const int band_rows = rows + 2 * kHalo;
+  const int band_rows = rows + 2 * halo;
   const long chunks = (long)(band_rows - 2 * k) * w_img * (cin / 8);
   long splits = chunks / (kThreads * 16);
   splits = splits < 1 ? 1 : splits > 128 ? 128 : splits;
@@ -343,22 +348,24 @@ extern "C" int dense_block_int8_amax(int is_bf16, const void* buf,
 
 // Conv k of the int8 block (see the note above).  The wrapper checks
 // shapes, dtypes and contiguity; the widths are checked here too because
-// they pick the template and the 16-byte copies.
+// they pick the template and the 8-channel copies.
 extern "C" int dense_block_int8_conv(
-    int is_bf16, void* buf, int c_total, int cin, int k, const void* wq,
-    int cpad, const void* sw, const void* bias, int cout, void* y,
-    const void* x, int batch, int n_bands, int rows, int h, int w_img,
-    float slope, float res_scale, int last, const void* amax, void* stream) {
-  if (cout < 8 || cout > 64 || cout % 8 || cin < 8 || cin % 8 ||
-      c_total % 8 || cin + (last ? 0 : cout) > c_total || cpad < cin ||
-      cpad % kChunk || k < 0 || k > 4 || rows < 5 || n_bands * rows != h ||
-      batch < 1 || (long)batch * n_bands > 65535 || w_img < 1)
+    int is_bf16, void* buf, int c_total, int cin, int k, int halo,
+    const void* wq, int cpad, const void* sw, const void* bias, int cout,
+    void* y, const void* x, int batch, int n_bands, int rows, int h,
+    int w_img, float slope, float res_scale, int last, const void* amax,
+    void* stream) {
+  if (cout < 1 || cin < 8 || cin % 8 || c_total % 8 ||
+      cin + (last ? 0 : cout) > c_total || cpad < cin || cpad % kChunk ||
+      k < 0 || k >= halo || rows < 5 || n_bands * rows != h || batch < 1 ||
+      (long)batch * n_bands > 65535 || w_img < 1)
     return (int)cudaErrorInvalidValue;
-  Int8Conv a{buf, c_total, cin, k, static_cast<const int8_t*>(wq), cpad,
-             static_cast<const float*>(sw), static_cast<const float*>(bias),
-             cout, y, x, n_bands, rows, h, w_img, slope, res_scale, last,
-             static_cast<const unsigned*>(amax)};
-  const int out_rows = rows + 2 * kHalo - 2 * k - 2;
+  Int8Conv a{buf, c_total, cin, k, halo, static_cast<const int8_t*>(wq),
+             cpad, static_cast<const float*>(sw),
+             static_cast<const float*>(bias), cout, y, x, n_bands, rows, h,
+             w_img, slope, res_scale, last,
+             static_cast<const unsigned*>(amax), 1};
+  const int out_rows = rows + 2 * halo - 2 * k - 2;
   const dim3 grid((w_img + kTileW - 1) / kTileW,
                   (out_rows + kTileH - 1) / kTileH, batch * n_bands);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

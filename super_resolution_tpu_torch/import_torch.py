@@ -206,9 +206,9 @@ def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
     for b in range(n_blocks):
         blk = params[f"block{b}"]
         for k in range(1, len(blk) + 1):
-            for j in range(1, 6):
-                conv(blk[f"dense{k}"][f"conv{j}"], f"body.{b}.rdb{k}.conv{j}",
-                     sd)
+            dense = blk[f"dense{k}"]
+            for j in range(1, len(dense) + 1):
+                conv(dense[f"conv{j}"], f"body.{b}.rdb{k}.conv{j}", sd)
     return sd
 
 

@@ -71,7 +71,6 @@ from super_resolution_tpu_torch.ops.conv3x3 import (
     packed_conv3x3,
 )
 from super_resolution_tpu_torch.ops.dense_block import (
-    N_CONVS,
     dense_block,
     dense_block_train,
     fused_dense_block,
@@ -140,27 +139,27 @@ class Conv3x3(nn.Module):
 
 
 class DenseBlock(nn.Module):
-    """5-conv dense block with residual scaling; conv k reads the concat
-    of the input and every earlier output.  NCHW in and out under the
-    channels-first impls, NHWC under ``pallas`` and ``pallas_fused``."""
+    """Dense block of ``cfg.n_dense_convs`` convs (``conv1..conv{n}``,
+    the last one back to ``filters``) with residual scaling; conv k reads
+    the concat of the input and every earlier output.  NCHW in and out
+    under the channels-first impls, NHWC under ``pallas`` and
+    ``pallas_fused``."""
 
     def __init__(self, cfg: GeneratorConfig):
         super().__init__()
-        if cfg.n_dense_convs != N_CONVS:
-            raise NotImplementedError(
-                f"the dense-block kernel runs {N_CONVS} convs, got "
-                f"n_dense_convs={cfg.n_dense_convs}")
         self.cfg = cfg
         self.impl = resolve_conv_impl(cfg.conv_impl)
+        n = cfg.n_dense_convs
         cin = cfg.filters
-        for j in range(1, N_CONVS + 1):
-            width = cfg.filters if j == N_CONVS else cfg.growth
+        for j in range(1, n + 1):
+            width = cfg.filters if j == n else cfg.growth
             setattr(self, f"conv{j}", Conv3x3(cin, width))
             cin += width
         self._w = self._b = self._dtype = None
 
     def convs(self):
-        return [getattr(self, f"conv{j}") for j in range(1, N_CONVS + 1)]
+        return [getattr(self, f"conv{j}")
+                for j in range(1, self.cfg.n_dense_convs + 1)]
 
     def prepare(self, dtype: torch.dtype, live: bool = False) -> None:
         """Pack the weights into the kernels' layout in ``dtype`` and
@@ -197,9 +196,10 @@ class DenseBlock(nn.Module):
         """``lax``: each conv ``F.conv2d``, LeakyReLU and the concat in
         the compute dtype, then the residual in the compute dtype."""
         feats, slope = x, self.cfg.lrelu_slope
-        for k, conv in enumerate(self.convs()):
+        convs = self.convs()
+        for k, conv in enumerate(convs):
             out = conv(feats)
-            if k < N_CONVS - 1:
+            if k < len(convs) - 1:
                 feats = torch.cat([feats, F.leaky_relu(out, slope)], 1)
         return x + self.cfg.res_scale * out
 
@@ -209,10 +209,11 @@ class DenseBlock(nn.Module):
         compute dtype; the residual in the compute dtype."""
         b, h, w, c = x.shape
         slope = self.cfg.lrelu_slope
-        buf = x.new_empty((b, h, w, c + (N_CONVS - 1) * self.cfg.growth))
+        n = len(self._w)
+        buf = x.new_empty((b, h, w, c + (n - 1) * self.cfg.growth))
         buf[..., :c].copy_(x)
         cin = c
-        for k in range(N_CONVS - 1):
+        for k in range(n - 1):
             cout = self._w[k].shape[1]
             out = buf[..., cin:cin + cout]
             packed_conv3x3(buf[..., :cin], self._w[k], self._b[k],

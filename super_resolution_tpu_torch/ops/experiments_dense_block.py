@@ -2,8 +2,9 @@
 
 ``ops/pallas/experiments_dense_block.py`` of the JAX package keeps five
 retired TPU kernels of the ESRGAN dense block, each behind its own
-contract: NCHW x, HWIO weights, f32 biases, a keyword band height
-``rows`` (``h % rows == 0 and rows >= 5``, a ``ValueError`` here),
+contract: NCHW x, HWIO weights (any count n = ``len(weights)``, any
+channel and growth widths), f32 biases, a keyword band height ``rows``
+(``h % rows == 0 and rows >= 5``, a ``ValueError`` here),
 ``res_scale`` and ``slope``.  No product dispatch reaches them; the
 port's tools do (``tools.kernel_bench``, ``tools.model_bench``,
 ``tools.kernel_dev_check``).
@@ -30,11 +31,14 @@ port's tools do (``tools.kernel_bench``, ``tools.model_bench``,
   window is quantized with one scale per (image, band) from its amax;
   the three dx partial products are dequantized apart and summed
   ``((left + mid) + right) + b`` in f32, ``left + mid`` as one FMA.  A
-  band recomputes its 10 halo rows with its own scales, so the result
-  depends on ``rows``.  On a
-  CUDA tensor it launches ``csrc/dense_block_int8.cu`` (an amax kernel
-  and an int8 ``mma.sync`` conv kernel per conv: ten launches); on a
-  CPU tensor it runs :func:`fused_dense_block_cf8_plain`.
+  band recomputes its 2n halo rows with its own scales, so the result
+  depends on ``rows``.  On a CUDA tensor it launches
+  ``csrc/dense_block_int8.cu`` (an amax kernel and an int8 ``mma.sync``
+  conv kernel per conv: 2n launches), with C and G padded to multiples
+  of 8 inside its banded buffer and the weights, whose zeros change no
+  amax, no weight scale (an all-zero row gets the JAX kernel's scale
+  ``1e-12 / 127`` and quantizes to 0) and no int32 sum; on a CPU tensor
+  it runs :func:`fused_dense_block_cf8_plain`.
 
 Two steps follow what XLA makes of the JAX kernel (checked against it
 in interpret mode on the CPU): ``x / 127.0`` is folded into a
@@ -60,17 +64,24 @@ import torch
 import torch.nn.functional as F
 
 from super_resolution_tpu_torch.ops.dense_block import (
-    MAX_WIDTH,
     N_CONVS,
     _check,
     _launch_block,
+    _padded_params,
     dense_block_plain,
+    layout,
     pack_weight,
     split_features,
+    unpack_weight,
 )
 
-HALO = N_CONVS                 # rows a band reads above and below
-INT8_LAUNCHES_PER_CALL = 2 * N_CONVS   # an amax and a conv per conv
+
+def int8_launches(n: int) -> int:
+    """Launches of one v8 call with n convs: an amax and a conv each."""
+    return 2 * n
+
+
+INT8_LAUNCHES_PER_CALL = int8_launches(N_CONVS)
 INT8_CHUNK = 32                # channels per int8 mma step (k32)
 # float32 1/127: XLA's fold of the JAX kernel's ``/ 127.0``
 RECIP127 = float(torch.tensor(1.0) / torch.tensor(127.0))
@@ -97,9 +108,9 @@ def _packed(x: torch.Tensor, weights: Sequence[torch.Tensor],
             biases: Sequence[torch.Tensor]):
     """HWIO weights packed (9, cout, cin) in x's dtype, f32 biases, as
     the JAX kernels cast them."""
-    if len(weights) != N_CONVS or len(biases) != N_CONVS:
-        raise ValueError(f"expected {N_CONVS} weights and biases, got "
-                         f"{len(weights)} and {len(biases)}")
+    if not weights or len(weights) != len(biases):
+        raise ValueError(f"expected as many weights as biases (at least "
+                         f"one), got {len(weights)} and {len(biases)}")
     return ([pack_weight(w.permute(3, 2, 0, 1)).to(x.dtype)
              for w in weights],
             [b.to(torch.float32).contiguous() for b in biases])
@@ -109,9 +120,9 @@ def _routed(counter, x: torch.Tensor, weights: Sequence[torch.Tensor],
             biases: Sequence[torch.Tensor], rows: int, res_scale: float,
             slope: float, save_acts: bool = False):
     """One of v3–v6: the dense-block kernel of ``csrc/dense_block.cu``
-    on a CUDA tensor (five launches counted in ``counter.launches``),
-    its plain version on a CPU tensor.  ``save_acts`` returns
-    ``(y, [x_1..x_4])``, NCHW."""
+    on a CUDA tensor (one launch per conv, counted in
+    ``counter.launches``), its plain version on a CPU tensor.
+    ``save_acts`` returns ``(y, [x_1..x_{n-1}])``, NCHW."""
     _check_rows(x, rows)
     wp, bp = _packed(x, weights, biases)
     _check(x, wp, bp)
@@ -124,7 +135,8 @@ def _routed(counter, x: torch.Tensor, weights: Sequence[torch.Tensor],
     y, buf = _launch_block(counter, x, x.permute(0, 2, 3, 1), wp, bp,
                            res_scale, slope, nhwc=False)
     if save_acts:
-        return y, split_features(buf, x.shape[1], wp[0].shape[1])[1]
+        return y, split_features(buf, x.shape[1], wp[0].shape[1]
+                                 if len(wp) > 1 else 0)[1]
     return y
 
 
@@ -133,7 +145,7 @@ def fused_dense_block_cf(x: torch.Tensor, weights: Sequence[torch.Tensor],
                          res_scale: float = 0.2,
                          slope: float = 0.2) -> torch.Tensor:
     """v3: x (B, C, H, W), weights[k] (3, 3, C_k, C_k_out) HWIO.  Returns
-    (B, C, H, W): x + res_scale·conv5([x, x1..x4])."""
+    (B, C, H, W): x + res_scale·conv_n([x, x1..x_{n-1}])."""
     return _routed(fused_dense_block_cf, x, weights, biases, rows,
                    res_scale, slope)
 
@@ -152,7 +164,8 @@ def fused_dense_block_cf3(x: torch.Tensor, weights: Sequence[torch.Tensor],
                           res_scale: float = 0.2, slope: float = 0.2,
                           save_acts: bool = False):
     """v4; the contract of :func:`fused_dense_block_cf`.  With
-    ``save_acts`` also returns ``[a1..a4]``, (B, growth, H, W) each."""
+    ``save_acts`` also returns ``[a1..a_{n-1}]``, (B, growth, H, W)
+    each."""
     return _routed(fused_dense_block_cf3, x, weights, biases, rows,
                    res_scale, slope, save_acts)
 
@@ -185,11 +198,11 @@ def quantize_weights(weights: Sequence[torch.Tensor]
     return wqs, sws
 
 
-def _bands(x: torch.Tensor, rows: int) -> torch.Tensor:
-    """x (B, C, H, W) -> its bands (B, n_bands, C, rows + 10, W), zero
-    rows above and below the image (a view of one padded copy)."""
-    band_rows = rows + 2 * HALO
-    xp = F.pad(x, (0, 0, HALO, HALO))
+def _bands(x: torch.Tensor, rows: int, halo: int) -> torch.Tensor:
+    """x (B, C, H, W) -> its bands (B, n_bands, C, rows + 2 halo, W),
+    zero rows above and below the image (a view of one padded copy)."""
+    band_rows = rows + 2 * halo
+    xp = F.pad(x, (0, 0, halo, halo))
     return xp.unfold(2, band_rows, rows).permute(0, 2, 1, 4, 3)
 
 
@@ -201,24 +214,18 @@ def _check_int8(x: torch.Tensor, weights: Sequence[torch.Tensor],
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous (NCHW)")
-    if len(weights) != N_CONVS or len(biases) != N_CONVS:
-        raise ValueError(f"expected {N_CONVS} weights and biases, got "
-                         f"{len(weights)} and {len(biases)}")
+    if not weights or len(weights) != len(biases):
+        raise ValueError(f"expected as many weights as biases (at least "
+                         f"one), got {len(weights)} and {len(biases)}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, *weights, *biases)):
         raise RuntimeError("the int8 dense block has no gradient, and an "
                            "input requires one: run under torch.no_grad()")
     c = x.shape[1]
-    growth = weights[0].shape[-1]
-    widths = (c, growth)
-    if any(v % 8 or v > MAX_WIDTH for v in widths) or min(widths) < 8:
-        raise ValueError(
-            f"the int8 dense-block kernel takes channels and growth that "
-            f"are multiples of 8 in [8, {MAX_WIDTH}], got channels={c}, "
-            f"growth={growth}")
+    growth = weights[0].shape[-1] if len(weights) > 1 else 0
     cin = c
     for k, (wk, bk) in enumerate(zip(weights, biases)):
-        cout = c if k == N_CONVS - 1 else growth
+        cout = c if k == len(weights) - 1 else growth
         if tuple(wk.shape) != (3, 3, cin, cout):
             raise ValueError(f"conv{k + 1} weight must be HWIO "
                              f"(3, 3, {cin}, {cout}), got "
@@ -241,20 +248,23 @@ def fused_dense_block_cf8_plain(x: torch.Tensor,
     """The plain PyTorch version of v8, step by step as the JAX kernel
     takes them, all bands at once: quantized operands are integers held
     in float32 and their products are summed by ``torch.matmul``, which
-    is exact (every partial sum is below 3·320·127² < 2^24; TF32 off)."""
+    is exact while every partial sum stays below 2^24 (3·C_k·127², C_k up
+    to 346 input channels; TF32 off), and in float64 for wider convs;
+    the int32 sum then rounds to float32 as the kernels convert it."""
     _check_int8(x, weights, biases, rows)
     b, c, h, w = x.shape
-    n_bands, band_rows = h // rows, rows + 2 * HALO
+    n = halo = len(weights)
+    n_bands, band_rows = h // rows, rows + 2 * halo
     dtype = x.dtype
     wqs, sws = quantize_weights(weights)
-    bands = _bands(x, rows)                         # (B, nb, C, rows+10, W)
+    bands = _bands(x, rows, halo)                 # (B, nb, C, rows+2n, W)
     feats = bands.float()
     band_row0 = torch.arange(n_bands, device=x.device) * rows
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for k in range(N_CONVS):
-            last = k == N_CONVS - 1
+        for k in range(n):
+            last = k == n - 1
             cout = wqs[k].shape[0] // 3
             out_rows = band_rows - 2 * k - 2
             win = feats[:, :, :, k:band_rows - k]    # (B, nb, C_k, out+2, W)
@@ -264,7 +274,10 @@ def fused_dense_block_cf8_plain(x: torch.Tensor,
             q = q.clamp(-127.0, 127.0)
             ext = torch.cat([q[:, :, :, dy:dy + out_rows]
                              for dy in range(3)], 2)
-            acc = torch.matmul(wqs[k], ext.flatten(3))   # (B, nb, 3F, M)
+            exact = torch.float32 if 3 * q.shape[2] * 127 ** 2 < 2 ** 24 \
+                else torch.float64
+            acc = torch.matmul(wqs[k].to(exact), ext.flatten(3).to(exact)) \
+                .float()                                  # (B, nb, 3F, M)
             acc = acc.reshape(b, n_bands, 3, cout, out_rows, w)
             scale = (sws[k].reshape(3, cout)
                      * s_x[..., None, None])[..., None, None]
@@ -278,7 +291,7 @@ def fused_dense_block_cf8_plain(x: torch.Tensor,
             out = mid + right + biases[k].float()[:, None, None]
             if not last:
                 out = torch.where(out >= 0, out, slope * out)
-            g_row = (band_row0[:, None] - (HALO - k - 1)
+            g_row = (band_row0[:, None] - (halo - k - 1)
                      + torch.arange(out_rows, device=x.device))
             inside = (g_row >= 0) & (g_row < h)
             out = torch.where(inside[None, :, None, :, None], out, 0.0)
@@ -289,7 +302,7 @@ def fused_dense_block_cf8_plain(x: torch.Tensor,
                 feats = torch.cat([feats, full], 2)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev_tf32
-    x_center = bands[:, :, :, HALO:HALO + rows].float()
+    x_center = bands[:, :, :, halo:halo + rows].float()
     y = (x_center + res_scale * out).to(dtype)      # (B, nb, C, rows, W)
     return y.permute(0, 2, 1, 3, 4).reshape(b, c, h, w)
 
@@ -300,12 +313,12 @@ def _lib_int8() -> ctypes.CDLL:
     lib = load("dense_block_int8")
     if lib.dense_block_int8_conv.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.dense_block_int8_amax.argtypes = [i, vp, i, i, i, i, i, i, vp,
-                                              vp]
+        lib.dense_block_int8_amax.argtypes = [i, vp, i, i, i, i, i, i, i,
+                                              vp, vp]
         lib.dense_block_int8_amax.restype = i
         lib.dense_block_int8_conv.argtypes = [
-            i, vp, i, i, i, vp, i, vp, vp, i, vp, vp, i, i, i, i, i, f, f,
-            i, vp, vp]
+            i, vp, i, i, i, i, vp, i, vp, vp, i, vp, vp, i, i, i, i, i, f,
+            f, i, vp, vp]
         lib.dense_block_int8_conv.restype = i
         lib.dense_block_int8_error_string.argtypes = [i]
         lib.dense_block_int8_error_string.restype = ctypes.c_char_p
@@ -328,7 +341,7 @@ def fused_dense_block_cf8(x: torch.Tensor, weights: Sequence[torch.Tensor],
                           slope: float = 0.2) -> torch.Tensor:
     """v8, the int8 dense block with dynamic quantization; the contract
     of :func:`fused_dense_block_cf`.  On a CUDA tensor the kernels of
-    ``csrc/dense_block_int8.cu`` (ten launches, counted in
+    ``csrc/dense_block_int8.cu`` (2n launches, counted in
     ``fused_dense_block_cf8.launches``) or an error; on a CPU tensor
     :func:`fused_dense_block_cf8_plain`."""
     growth = _check_int8(x, weights, biases, rows)
@@ -340,40 +353,50 @@ def fused_dense_block_cf8(x: torch.Tensor, weights: Sequence[torch.Tensor],
                          f"{x.device}")
     lib = _lib_int8()
     b, c, h, w = x.shape
-    n_bands, band_rows = h // rows, rows + 2 * HALO
-    c_total = c + (N_CONVS - 1) * growth
+    n = halo = len(weights)
+    n_bands, band_rows = h // rows, rows + 2 * halo
+    # 8-channel pieces in both dtypes: the layout of a bf16 buffer
+    lay = layout(c, growth, n, torch.bfloat16)
     is_bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
+        if lay.padded:
+            # at the buffer's widths: each real channel at its place,
+            # zero rows, columns and biases elsewhere
+            wp, biases = _padded_params(
+                [pack_weight(w.permute(3, 2, 0, 1)) for w in weights],
+                biases, lay)
+            weights = [unpack_weight(w).permute(2, 3, 1, 0) for w in wp]
         wqs, sws = quantize_weights(weights)
         bias = [bk.float().contiguous() for bk in biases]
         # the banded channels-last buffer: x in channels [0, C), then each
         # conv's slice, band by band (a band's halo rows are its own)
-        buf = torch.empty((b, n_bands, band_rows, w, c_total),
+        buf = torch.empty((b, n_bands, band_rows, w, lay.c_total),
                           dtype=x.dtype, device=x.device)
-        buf[..., :c].copy_(_bands(x, rows).permute(0, 1, 3, 4, 2))
-        amax = torch.zeros((N_CONVS, b * n_bands), dtype=torch.int32,
+        buf[..., :c].copy_(_bands(x, rows, halo).permute(0, 1, 3, 4, 2))
+        if lay.cp > c:
+            buf[..., c:lay.cp].zero_()
+        amax = torch.zeros((n, b * n_bands), dtype=torch.int32,
                            device=x.device)
         y = torch.empty_like(x)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        cin = c
-        for k in range(N_CONVS):
-            last = k == N_CONVS - 1
-            cout = c if last else growth
+        for k in range(n):
+            last = k == n - 1
+            cin = lay.offset(k + 1)          # conv k's padded input
+            cout = wqs[k].shape[0] // 3
             wq8, c_pad = kernel_weights(wqs[k], cout)
             rc = lib.dense_block_int8_amax(
-                is_bf16, buf.data_ptr(), c_total, cin, k, rows,
+                is_bf16, buf.data_ptr(), lay.c_total, cin, k, halo, rows,
                 b * n_bands, w, amax[k].data_ptr(), stream)
             _raise_int8(lib, rc, f"amax{k + 1}")
             fused_dense_block_cf8.launches += 1
             rc = lib.dense_block_int8_conv(
-                is_bf16, buf.data_ptr(), c_total, cin, k, wq8.data_ptr(),
-                c_pad, sws[k].data_ptr(), bias[k].data_ptr(), cout,
-                y.data_ptr(), x.data_ptr(), b, n_bands, rows, h, w,
+                is_bf16, buf.data_ptr(), lay.c_total, cin, k, halo,
+                wq8.data_ptr(), c_pad, sws[k].data_ptr(), bias[k].data_ptr(),
+                cout, y.data_ptr(), x.data_ptr(), b, n_bands, rows, h, w,
                 float(slope), float(res_scale), int(last),
                 amax[k].data_ptr(), stream)
             _raise_int8(lib, rc, f"conv{k + 1}")
             fused_dense_block_cf8.launches += 1
-            cin += cout
     return y
 
 

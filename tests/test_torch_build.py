@@ -1,7 +1,9 @@
 """How the port's CUDA sources are built, checked without a compiler:
 the library name covers every shared header, the ptxas report is read
-back, and the bf16 forward kernels sit on the Hopper tile."""
+back, and the bf16 kernels sit on the Hopper tile and wgmma."""
 
+import importlib
+import inspect
 import os
 import shutil
 
@@ -66,10 +68,26 @@ def test_bf16_forward_runs_on_the_wgmma_tile(name):
 
 
 def test_mma_sync_tile_serves_only_the_backward():
+    """The bf16 mma.sync tile is gone with its last user: the bf16
+    backward's data gradient runs on the Hopper tile (its own epilogues)
+    and its weight gradient on wgmma fed by TMA; the wrapper re-lays the
+    weights with one indexed copy, not a flip and a transpose per conv."""
     users = [n for n in os.listdir(build.CSRC)
-             if "conv_tile_bf16" in _source(n) and n != "conv3x3_tile.cuh"]
-    assert users == ["dense_block_bwd.cu"]
+             if "conv_tile_bf16" in _source(n)
+             or "mma.sync.aligned.m16n8k16" in _source(n)]
+    assert users == []
+    bwd = _source("dense_block_bwd.cu")
+    assert '#include "conv3x3_wgmma.cuh"' in bwd
+    assert "wgc::launch<float, 64, true>" in bwd
+    for ptx in ("wgmma.mma_async", "ldmatrix.sync.aligned.m8n8.x4.trans",
+                "wgc::tma_load_4d"):
+        assert ptx in bwd
     hopper = _source("conv3x3_wgmma.cuh")
     for ptx in ("wgmma.mma_async", "cp.async.bulk.tensor.4d",
                 "mbarrier.try_wait", "ldmatrix"):
         assert ptx in hopper
+    ops = importlib.import_module(
+        "super_resolution_tpu_torch.ops.dense_block")
+    bf16_path = inspect.getsource(ops._bwd_bf16)
+    assert "flip(" not in bf16_path and "transpose(" not in bf16_path
+    assert "torch.zeros" not in bf16_path      # no f32 dfeats buffer

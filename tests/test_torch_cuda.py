@@ -41,6 +41,7 @@ from super_resolution_tpu_torch.ops.conv3x3 import (
 from super_resolution_tpu_torch.ops.dense_block import (
     BWD_LAUNCHES_PER_BLOCK,
     LAUNCHES_PER_BLOCK,
+    bwd_launches,
     dense_block,
     dense_block_bwd,
     dense_block_plain,
@@ -70,13 +71,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _block(shape, growth, dtype, device, seed=0):
+def _block(shape, growth, dtype, device, seed=0, n=5):
     gen = torch.Generator().manual_seed(seed)
     b, c, h, w = shape
     x = torch.randn(shape, generator=gen).to(device, dtype)
     ws, bs, cin = [], [], c
-    for k in range(5):
-        cout = c if k == 4 else growth
+    for k in range(n):
+        cout = c if k == n - 1 else growth
         wk = torch.randn(cout, cin, 3, 3, generator=gen) \
             * math.sqrt(2.0 / (9 * cin))
         ws.append(pack_weight(wk).to(device, dtype))
@@ -141,7 +142,7 @@ def test_backward_kernels_match_plain(cuda, shape, growth, dtype, slope):
     before = dense_block_bwd.launches
     dx, dws, dbs = dense_block_bwd(feats, ws, g, **kw)
     torch.cuda.synchronize()
-    assert dense_block_bwd.launches == before + BWD_LAUNCHES_PER_BLOCK
+    assert dense_block_bwd.launches == before + bwd_launches(5, dtype)
     rx, rws, rbs = plain_backward(feats, ws, g, **kw)
     assert dx.dtype == dtype and dx.shape == x.shape
     tol = BWD_TOL[dtype]
@@ -157,9 +158,49 @@ def test_backward_kernels_match_plain(cuda, shape, growth, dtype, slope):
     assert all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("n,c,growth", [(4, 8, 4), (5, 16, 4), (3, 8, 8),
+                                        (5, 12, 6), (5, 96, 72)],
+                         ids=["n4_c8_g4", "n5_c16_g4", "n3_c8_g8",
+                              "n5_c12_g6", "n5_c96_g72"])
+def test_any_conv_count_and_width(cuda, n, c, growth, dtype):
+    """The full calling contract on the card: forward (NCHW and NHWC)
+    and backward at any conv count and width, against the plain
+    versions, launches by their formulas, two backward runs bit for
+    bit."""
+    x, ws, bs = _block((2, c, 21, 37), growth, dtype, cuda, n=n)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(8)) \
+        .to(cuda, dtype)
+    kw = dict(res_scale=0.2, slope=0.2)
+    f0, b0 = dense_block.launches, dense_block_bwd.launches
+    y, feats = dense_block(x, ws, bs, save_acts=True, **kw)
+    y_nhwc = fused_dense_block(x.permute(0, 2, 3, 1).contiguous(), ws, bs,
+                               **kw)
+    dx, dws, dbs = dense_block_bwd(feats, ws, g, **kw)
+    torch.cuda.synchronize()
+    assert dense_block.launches - f0 == n
+    assert dense_block_bwd.launches - b0 == bwd_launches(n, dtype)
+    ref = dense_block_plain(x, ws, bs, **kw)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(y.float(), ref.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(y_nhwc.permute(0, 3, 1, 2).float(),
+                               ref.float(), atol=atol, rtol=rtol)
+    rx, rws, rbs = plain_backward(feats, ws, g, **kw)
+    tol = BWD_TOL[dtype]
+    assert _rel(dx, rx) <= tol["dx"]
+    for k in range(n):
+        assert dws[k].shape == ws[k].shape
+        assert _rel(dws[k], rws[k]) <= tol["dw"], f"dW{k + 1}"
+        assert _rel(dbs[k], rbs[k]) <= tol["db"], f"db{k + 1}"
+    dx2, dws2, dbs2 = dense_block_bwd(feats, ws, g, **kw)
+    assert torch.equal(dx, dx2)
+    assert all(torch.equal(a, b) for a, b in zip(dws + dbs, dws2 + dbs2))
+
+
 def test_train_function_launches_both_kernels(cuda):
     """autograd through dense_block_train on the card: five forward and
-    fifteen backward launches, dW in the weights' dtype, a non-contiguous
+    eight backward launches, dW in the weights' dtype, a non-contiguous
     cotangent made contiguous."""
     x, ws, bs = _block((2, 64, 24, 40), 32, torch.bfloat16, cuda)
     leaves = [t.requires_grad_(True) for t in (x, *ws, *bs)]
@@ -246,7 +287,7 @@ def test_training_step_on_the_card_matches_plain(cuda, monkeypatch):
                       dense_block_bwd.launches - bwd0)
     n_blocks = cfg.generator.n_blocks * cfg.generator.n_dense
     assert out["kernel"][2:] == (n_blocks * LAUNCHES_PER_BLOCK,
-                                 n_blocks * BWD_LAUNCHES_PER_BLOCK)
+                                 n_blocks * bwd_launches(5, torch.float32))
     assert out["plain"][2:] == (0, 0)
     for name, want in out["plain"][0].items():
         torch.testing.assert_close(out["kernel"][0][name], want, atol=1e-5,

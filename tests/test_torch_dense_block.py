@@ -8,6 +8,13 @@ bias, every conv output rounded to x's dtype, conv5 rounded before the
 f32 residual).  Inputs and weights are drawn with numpy from a seed and
 handed to both sides.
 
+Any conv count and any widths, as the JAX kernels take them: the five
+geometries of ``GEOMETRIES`` (``tests/test_pallas.py``'s (n_convs, nf,
+gc) = (4, 8, 4), (5, 16, 4), (3, 8, 8), plus widths that are not
+multiples of 8 and widths above 64) against a lax block, one of them
+against the Pallas kernel, and the bf16 kernel's padded feature buffer
+emulated on the CPU.
+
 Tolerances: float32 at atol = rtol = 1e-5 (the two sides sum the 3x3
 taps in another order).  bfloat16 at atol = rtol = 2**-6, about two
 bf16 ULPs: an f32 sum taken in another order can flip the bf16 rounding
@@ -17,7 +24,9 @@ of one conv output by one ULP, and later convs of the block carry it.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
+import jax
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
@@ -29,23 +38,32 @@ from super_resolution_tpu.ops.pallas.dense_block_cf_ext import (
 )
 from super_resolution_tpu_torch.ops.dense_block import (
     LAUNCHES_PER_BLOCK,
+    _padded_params,
     dense_block,
+    dense_block_plain,
+    fwd_launches,
+    layout,
     pack_weight,
     unpack_weight,
 )
 
 NF, GC = 16, 8
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -6, 2.0 ** -6)}
+# (n_convs, nf, gc): tests/test_pallas.py's general geometries, widths
+# that are not multiples of 8, widths above 64
+GEOMETRIES = [(4, 8, 4), (5, 16, 4), (3, 8, 8), (5, 12, 6), (5, 96, 72)]
+GEOMETRY_IDS = [f"n{n}_c{c}_g{g}" for n, c, g in GEOMETRIES]
 
 
-def _block_inputs(seed, shape, nf=NF, gc=GC):
-    """x (B, C, H, W) and HWIO weights / f32 biases, float32 numpy."""
+def _block_inputs(seed, shape, nf=NF, gc=GC, n=5):
+    """x (any shape) and the HWIO weights / f32 biases of an n-conv block
+    of nf channels and growth gc, float32 numpy."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal(shape).astype(np.float32)
     ws, bs = [], []
     cin = nf
-    for k in range(5):
-        cout = nf if k == 4 else gc
+    for k in range(n):
+        cout = nf if k == n - 1 else gc
         ws.append((rng.standard_normal((3, 3, cin, cout))
                    * np.sqrt(2.0 / (9 * cin))).astype(np.float32))
         bs.append((rng.standard_normal(cout) * 0.1).astype(np.float32))
@@ -137,11 +155,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     xt = torch.from_numpy(x)
     wt = [pack_weight(torch.from_numpy(w).permute(3, 2, 0, 1)) for w in ws]
     bt = [torch.from_numpy(b) for b in bs]
-    if bad == "channels":           # growth 4 is not a multiple of 8
-        x, ws, bs = _block_inputs(11, (1, NF, 8, 8), gc=4)
-        wt = [pack_weight(torch.from_numpy(w).permute(3, 2, 0, 1))
-              for w in ws]
-        bt = [torch.from_numpy(b) for b in bs]
+    if bad == "channels":           # conv3's cin does not match the buffer
+        wt[2] = wt[2][..., :-1].contiguous()
     elif bad == "dtype":
         xt = xt.to(torch.float16)
     elif bad == "packing":
@@ -150,3 +165,70 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         xt = xt.permute(0, 1, 3, 2)
     with pytest.raises((ValueError, TypeError)):
         dense_block(xt, wt, bt, res_scale=0.2, slope=0.2)
+
+
+def _lax_block(x, ws, bs, slope=0.2):
+    """The textbook block on NCHW x in float32 (lax, HIGHEST)."""
+    feats = jnp.asarray(x)
+    for k, (w, b) in enumerate(zip(ws, bs)):
+        y = jax.lax.conv_general_dilated(
+            feats, jnp.asarray(w), (1, 1), "SAME",
+            dimension_numbers=("NCHW", "HWIO", "NCHW"),
+            precision=jax.lax.Precision.HIGHEST) + jnp.asarray(b)[:, None,
+                                                                 None]
+        if k < len(ws) - 1:
+            feats = jnp.concatenate([feats, jnp.where(y >= 0, y, slope * y)],
+                                    1)
+    return np.asarray(jnp.asarray(x) + 0.2 * y)
+
+
+@pytest.mark.parametrize("n,nf,gc", GEOMETRIES, ids=GEOMETRY_IDS)
+def test_any_conv_count_and_width_matches_lax(n, nf, gc):
+    x, ws, bs = _block_inputs(21, (2, nf, 10, 13), nf=nf, gc=gc, n=n)
+    got = _port(x, ws, bs, "float32", 0.2)
+    np.testing.assert_allclose(got, _lax_block(x, ws, bs), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_unaligned_widths_match_pallas(dtype):
+    """C 12, growth 6: the Pallas kernel takes any width; so does the
+    port."""
+    x, ws, bs = _block_inputs(22, (1, 12, 16, 24), nf=12, gc=6)
+    ref = _pallas(fused_dense_block_cf5, x, ws, bs, dtype, 0.2, rows=8)
+    atol, rtol = TOL[dtype]
+    np.testing.assert_allclose(_port(x, ws, bs, dtype, 0.2), ref, atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("n,nf,gc", [(5, 12, 6), (4, 8, 4), (3, 20, 16)],
+                         ids=["n5_c12_g6", "n4_c8_g4", "n3_c20_g16"])
+def test_padded_buffer_is_the_block(n, nf, gc):
+    """The bf16 kernel's feature buffer, emulated in float32 on the CPU:
+    C and G padded to 8 inside the buffer, the weights re-laid with zero
+    rows and columns, one conv per launch on the buffer's channel prefix
+    into its slice.  y equals the block, and the padded channels stay 0."""
+    x, ws, bs = _block_inputs(23, (2, nf, 9, 11), nf=nf, gc=gc, n=n)
+    xt = torch.from_numpy(x)
+    wt = [pack_weight(torch.from_numpy(w).permute(3, 2, 0, 1)) for w in ws]
+    bt = [torch.from_numpy(b) for b in bs]
+    lay = layout(nf, gc, n, torch.bfloat16)
+    assert lay.padded == (nf % 8 != 0 or gc % 8 != 0)
+    wp, bp = _padded_params(wt, bt, lay)
+    buf = torch.zeros(2, lay.c_total, 9, 11)
+    buf[:, :nf] = xt
+    for k in range(n):
+        cin = lay.offset(k + 1)
+        assert wp[k].shape[2] == cin
+        o = F.conv2d(buf[:, :cin], unpack_weight(wp[k]), bp[k], padding=1)
+        if k < n - 1:
+            buf[:, cin:cin + wp[k].shape[1]] = F.leaky_relu(o, 0.2)
+    y = xt + 0.2 * o
+    ref = dense_block_plain(xt, wt, bt, res_scale=0.2, slope=0.2)
+    torch.testing.assert_close(y, ref, atol=1e-6, rtol=1e-6)
+    real = torch.zeros(lay.c_total, dtype=torch.bool)
+    real[:nf] = True
+    for j in range(1, n):
+        real[lay.offset(j):lay.offset(j) + gc] = True
+    assert torch.equal(buf[:, ~real], torch.zeros_like(buf[:, ~real]))
+    assert fwd_launches(n) == n

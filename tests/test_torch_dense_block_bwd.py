@@ -10,6 +10,12 @@ versions, which keep the Pallas kernel's rounding points and its
 LeakyReLU gradient (the slope branch where a saved activation is exactly
 0).  Inputs are drawn with numpy from a seed and handed to both sides.
 
+Any conv count and any widths (``test_torch_dense_block.GEOMETRIES``)
+against ``jax.grad`` of a lax block, one geometry against the Pallas
+backward; and the dataflow of the bf16 kernels (the data gradient as a
+gather: one conv per feature slice over the dz buffer with re-laid
+weights) emulated in float32.
+
 Tolerances, float32: the JAX tests' own (``tests/test_pallas.py``), dx
 atol 2e-4 rtol 1e-4, dW and db atol 5e-4 rtol 1e-4 — the two sides sum
 taps and pixels in another order.  bfloat16: see the test.
@@ -18,6 +24,7 @@ taps and pixels in another order.  bfloat16: see the test.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -31,32 +38,43 @@ from super_resolution_tpu.ops.pallas.dense_block_cf_vjp import (
     fused_dense_block_cf5_bwd,
 )
 from super_resolution_tpu_torch.ops.dense_block import (
+    _relayout,
+    bwd_launches,
     dense_block,
     dense_block_bwd,
     dense_block_bwd_plain,
     dense_block_plain,
     dense_block_train,
     feature_buffer,
+    gather_index,
+    layout,
     pack_weight,
     split_features,
     unpack_weight,
+    wgrad_jobs,
     wgrad_parts,
+    wgrad_ranges,
 )
+
+from test_torch_dense_block import GEOMETRIES, GEOMETRY_IDS
 
 DX_TOL = dict(atol=2e-4, rtol=1e-4)
 DW_TOL = dict(atol=5e-4, rtol=1e-4)
 
 
-def _inputs(seed, shape, gc, scale=0.1):
-    """x, target (B, C, H, W), HWIO weights, biases: float32 numpy."""
+def _inputs(seed, shape, gc, scale=0.1, n=5):
+    """x, target (B, C, H, W), HWIO weights, biases of an n-conv block:
+    float32 numpy.  ``scale=None`` draws each conv's weights at
+    sqrt(1 / (9 cin)), which keeps wide blocks' values of order 1."""
     rng = np.random.default_rng(seed)
     nf = shape[1]
     x = rng.standard_normal(shape).astype(np.float32)
     tgt = rng.standard_normal(shape).astype(np.float32)
     ws, bs, cin = [], [], nf
-    for k in range(5):
-        cout = nf if k == 4 else gc
-        ws.append((rng.standard_normal((3, 3, cin, cout)) * scale)
+    for k in range(n):
+        cout = nf if k == n - 1 else gc
+        std = np.sqrt(1.0 / (9 * cin)) if scale is None else scale
+        ws.append((rng.standard_normal((3, 3, cin, cout)) * std)
                   .astype(np.float32))
         bs.append((rng.standard_normal(cout) * 0.1).astype(np.float32))
         cin += gc
@@ -86,8 +104,9 @@ def _port_grads(x, tgt, ws, bs, slope, noncontig=False):
     else:
         loss = ((y - torch.from_numpy(tgt)) ** 2).sum()
     g = torch.autograd.grad(loss, [xt, *wt, *bt])
-    return (g[0].numpy(), [_hwio(d) for d in g[1:6]],
-            [d.numpy() for d in g[6:]])
+    n = len(ws)
+    return (g[0].numpy(), [_hwio(d) for d in g[1:n + 1]],
+            [d.numpy() for d in g[n + 1:]])
 
 
 def _lax_block(x, ws, bs, slope):
@@ -97,7 +116,7 @@ def _lax_block(x, ws, bs, slope):
             feats, w, (1, 1), "SAME",
             dimension_numbers=("NCHW", "HWIO", "NCHW"),
             precision=jax.lax.Precision.HIGHEST) + b[None, :, None, None]
-        if k < 4:
+        if k < len(ws) - 1:
             feats = jnp.concatenate(
                 [feats, jnp.where(y >= 0, y, slope * y)], 1)
     return x + 0.2 * y
@@ -305,10 +324,18 @@ def test_train_returns_dw_in_the_weights_dtype():
 
 
 def test_wgrad_parts_depends_on_shapes_only():
-    assert wgrad_parts(144, 192, True) == 44      # 6 chunks of 32
-    assert wgrad_parts(144, 64, True) == 132
-    assert wgrad_parts(3, 64, True) == 3          # never more than tiles
-    assert wgrad_parts(144, 64, False) == 66      # f32: chunks of 16
+    # float32: slots of one conv's wgrad, chunks of 16 input channels
+    assert wgrad_parts(144, 192) == 22            # 12 chunks
+    assert wgrad_parts(144, 64) == 66
+    assert wgrad_parts(3, 64) == 3                # never more than tiles
+    # bf16: the one weight-gradient launch of a block, at the training
+    # shape (16, 64, 48, 48), growth 32, on 132 SMs: 14 jobs (conv, 64
+    # input channels, 32 output channels), 288 tiles of 16 x 8 pixels
+    lay = layout(64, 32, 5, torch.bfloat16)
+    assert wgrad_jobs(lay) == 1 + 2 + 2 + 3 + 3 * 2
+    assert wgrad_ranges(288, 14, 132) == 18       # 252 units
+    assert wgrad_ranges(3, 1, 132) == 3           # never more than tiles
+    assert wgrad_jobs(layout(12, 6, 5, torch.bfloat16)) == 5   # padded 16/8
 
 
 def test_forward_entry_refuses_inputs_that_require_grad():
@@ -326,3 +353,91 @@ def test_forward_entry_refuses_inputs_that_require_grad():
     y2 = dense_block_train(xt, wt, bt, res_scale=0.2, slope=0.2)
     assert y2.requires_grad and torch.equal(y, y2.detach())
 
+
+
+def _lax_grads(x, tgt, ws, bs, slope):
+    jt = jnp.asarray(tgt)
+
+    def loss_ref(x, ws, bs):
+        return jnp.sum((_lax_block(x, ws, bs, slope) - jt) ** 2)
+
+    return jax.grad(loss_ref, argnums=(0, 1, 2))(
+        jnp.asarray(x), [jnp.asarray(w) for w in ws],
+        [jnp.asarray(b) for b in bs])
+
+
+@pytest.mark.parametrize("n,nf,gc", GEOMETRIES, ids=GEOMETRY_IDS)
+def test_train_grads_any_count_and_width_match_lax(n, nf, gc):
+    x, tgt, ws, bs = _inputs(31, (1, nf, 10, 12), gc, scale=None, n=n)
+    got = _port_grads(x, tgt, ws, bs, 0.2)
+    assert len(got[1]) == len(got[2]) == n
+    _assert_grads(got, _lax_grads(x, tgt, ws, bs, 0.2))
+
+
+def test_train_grads_four_convs_match_pallas():
+    """tests/test_pallas.py's first general geometry (4 convs, 8
+    channels, growth 4) against the Pallas backward in interpret mode."""
+    x, tgt, ws, bs = _inputs(32, (1, 8, 16, 16), 4, n=4)
+    got = _port_grads(x, tgt, ws, bs, 0.2)
+    jt = jnp.asarray(tgt)
+
+    def loss_ker(x, ws, bs):
+        return jnp.sum((dense_block_cf_train(x, ws, bs, 8, 0.2, 0.2)
+                        - jt) ** 2)
+
+    with pltpu.force_tpu_interpret_mode():
+        gk = jax.grad(loss_ker, argnums=(0, 1, 2))(
+            jnp.asarray(x), [jnp.asarray(w) for w in ws],
+            [jnp.asarray(b) for b in bs])
+    _assert_grads(got, gk)
+
+
+@pytest.mark.parametrize("n,nf,gc", [(5, 64, 32), (3, 8, 8), (5, 12, 6)],
+                         ids=["canonical", "n3_c8_g8", "n5_c12_g6"])
+def test_gather_relayout_is_the_data_gradient(n, nf, gc):
+    """The bf16 backward's data gradient as a gather, in float32 on the
+    CPU: the dz buffer (dz_k in x_k's slice, dz_n in x's, padded as the
+    bf16 feature buffer), and for each slice j one F.conv2d over its
+    channels from dz_{j+1} on with the re-laid weights B_j, which must
+    give dense_block_bwd_plain's dfeats on slice j: for j >= 1 the
+    cotangent before the LeakyReLU gradient, for j = 0 dx - g."""
+    x, g, ws, bs = _inputs(33, (1, nf, 7, 9), gc, n=n)
+    xt, gt = torch.from_numpy(x), torch.from_numpy(g)
+    wt = _packed(ws)
+    _, acts = dense_block_plain(xt, wt, [torch.from_numpy(b) for b in bs],
+                                res_scale=0.2, slope=0.2, save_acts=True)
+    # dense_block_bwd_plain's steps, keeping dz_k and dfeats
+    feats = torch.cat([xt, *acts], 1)
+    dfeats = torch.zeros_like(feats)
+    dzs = [None] * n
+    for k in range(n - 1, -1, -1):
+        c_k = nf + k * gc
+        if k == n - 1:
+            dzs[k] = gt * 0.2
+        else:
+            dzs[k] = dfeats[:, c_k:c_k + gc] * torch.where(
+                feats[:, c_k:c_k + gc] > 0, 1.0, 0.2)
+        dfeats[:, :c_k] += F.conv_transpose2d(dzs[k], unpack_weight(wt[k]),
+                                              padding=1)
+    lay = layout(nf, gc, n, torch.bfloat16)
+    dzbuf = torch.zeros(1, lay.c_total, 7, 9)
+    for k in range(n):
+        at = k * lay.gp                      # dz_{k+1} in x_{k+1}'s place
+        dzbuf[:, at:at + dzs[k].shape[1]] = dzs[k]
+    bmat = _relayout(wt, gather_index, lay)
+    for j in range(n):
+        got = F.conv2d(dzbuf[:, j * lay.gp:], unpack_weight(bmat[j]),
+                       padding=1)
+        width = nf if j == 0 else gc
+        lo = 0 if j == 0 else nf + (j - 1) * gc
+        torch.testing.assert_close(got[:, :width],
+                                   dfeats[:, lo:lo + width], atol=1e-5,
+                                   rtol=1e-5)
+        assert torch.equal(got[:, width:], torch.zeros_like(got[:, width:]))
+    dx, _, _ = dense_block_bwd_plain(xt, acts, wt, gt, res_scale=0.2,
+                                     slope=0.2)
+    torch.testing.assert_close(gt + F.conv2d(
+        dzbuf, unpack_weight(bmat[0]), padding=1)[:, :nf], dx, atol=1e-5,
+        rtol=1e-5)
+    assert bwd_launches(n, torch.bfloat16) == n + 3
+    assert bwd_launches(n, torch.float32) == 3 * n

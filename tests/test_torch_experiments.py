@@ -16,6 +16,8 @@ Tolerances:
   same integers on both sides, and the port takes the one FMA XLA makes
   of the middle tap's shift-add.  A quantized value rounded the other
   way would move y by about 1e-3 and fail.
+- Any conv count and width: v3–v6 and v8 with 4 convs, 12 channels and
+  growth 6 against their Pallas kernels, at the tolerances above.
 - v8, bfloat16: 2^-6 of the largest |y| (measured 0 at this case; XLA
   may contract the bf16 residual into an FMA, which the port rounds in
   two steps, so a y near a bf16 rounding boundary can differ by an
@@ -33,14 +35,15 @@ from super_resolution_tpu.ops.pallas import experiments_dense_block as J
 from super_resolution_tpu_torch.ops import experiments_dense_block as P
 
 
-def _inputs(seed, shape, gc, scale=0.05):
-    """x (B, C, H, W), HWIO weights and f32 biases, float32 numpy."""
+def _inputs(seed, shape, gc, scale=0.05, n=5):
+    """x (B, C, H, W), HWIO weights and f32 biases of an n-conv block,
+    float32 numpy."""
     rng = np.random.default_rng(seed)
     nf = shape[1]
     x = rng.standard_normal(shape).astype(np.float32)
     ws, bs, cin = [], [], nf
-    for k in range(5):
-        cout = nf if k == 4 else gc
+    for k in range(n):
+        cout = nf if k == n - 1 else gc
         ws.append((rng.standard_normal((3, 3, cin, cout)) * scale)
                   .astype(np.float32))
         bs.append((rng.standard_normal(cout) * 0.1).astype(np.float32))
@@ -170,3 +173,18 @@ def test_cpu_wrappers_count_no_launches():
         _port(f, x, ws, bs, rows=8)
     assert [f.launches for f in fns] == before
     assert P.INT8_LAUNCHES_PER_CALL == 10
+
+
+@pytest.mark.parametrize("name", ["cf", "cf2", "cf3", "cf6", "cf8"])
+def test_any_conv_count_and_width_matches_pallas(name):
+    """4 convs of growth 6 on 12 channels (neither a multiple of 8)."""
+    x, ws, bs = _inputs(8, (1, 12, 16, 20), 6, scale=0.1, n=4)
+    fn = f"fused_dense_block_{name}"
+    ref = _jax(getattr(J, fn), x, ws, bs, rows=8)
+    got = _port(getattr(P, fn), x, ws, bs, rows=8)
+    assert got.shape == ref.shape == x.shape
+    if name == "cf8":
+        assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
+    else:
+        np.testing.assert_allclose(got, ref, atol=2e-5, rtol=1e-4)
+    assert P.int8_launches(4) == 8

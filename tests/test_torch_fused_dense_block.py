@@ -40,7 +40,14 @@ from super_resolution_tpu_torch.ops.dense_block import (
     pack_weight,
 )
 
-from test_torch_dense_block import GC, NF, _block_inputs
+from test_torch_dense_block import (
+    GC,
+    GEOMETRIES,
+    GEOMETRY_IDS,
+    NF,
+    _block_inputs,
+    _lax_block,
+)
 
 TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2.0 ** -5, 2.0 ** -5)}
 
@@ -122,3 +129,30 @@ def test_nhwc_entry_rejects_what_the_kernel_does_not_take(bad):
     with pytest.raises((ValueError, TypeError)):
         fused_dense_block(xt, wt, [torch.from_numpy(b) for b in bs],
                           res_scale=0.2, slope=0.2)
+
+
+@pytest.mark.parametrize("n,nf,gc", GEOMETRIES, ids=GEOMETRY_IDS)
+def test_nhwc_any_conv_count_and_width_matches_lax(n, nf, gc):
+    x, ws, bs = _block_inputs(41, (2, 11, 9, nf), nf=nf, gc=gc, n=n)
+    ref = _lax_block(x.transpose(0, 3, 1, 2), ws, bs).transpose(0, 2, 3, 1)
+    np.testing.assert_allclose(_port(x, ws, bs), ref, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_nhwc_unaligned_widths_match_pallas(dtype):
+    """C 12, growth 6 against the Pallas NHWC kernel."""
+    x, ws, bs = _block_inputs(42, (1, 16, 24, 12), nf=12, gc=6)
+    jdt = getattr(jnp, dtype)
+
+    def block(x_, ws_, bs_):
+        return j_fused_dense_block(x_.astype(jdt),
+                                   [w.astype(jdt) for w in ws_], bs_,
+                                   rows=8, res_scale=0.2, slope=0.2)
+
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax.jit(block)(jnp.asarray(x), [jnp.asarray(w) for w in ws],
+                             [jnp.asarray(b) for b in bs])
+        ref = np.asarray(ref).astype(np.float32)
+    atol, rtol = TOL[dtype]
+    np.testing.assert_allclose(_port(x, ws, bs, dtype), ref, atol=atol,
+                               rtol=rtol)

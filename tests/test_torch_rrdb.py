@@ -8,6 +8,7 @@ Tolerances are those of tests/test_parity.py: atol 2e-5, rtol 1e-4
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -174,3 +175,33 @@ def test_forward_before_prepare_raises():
     model = RRDBNet(GeneratorConfig(n_blocks=1, filters=16, growth=8))
     with pytest.raises(RuntimeError, match="prepare"):
         model(torch.zeros(1, 8, 8, 3))
+
+
+@functools.lru_cache(maxsize=1)
+def _four_conv_reference():
+    """The JAX lax RRDBNet with 4 convs per dense block, 8 filters and
+    growth 4, its params as the port's state dict, an input and its
+    output."""
+    cfg_kw = dict(n_blocks=1, filters=8, growth=4, n_dense_convs=4)
+    x = np.random.default_rng(5).standard_normal((1, 10, 12, 3)) \
+        .astype(np.float32)
+    jm, params = _jax_model(cfg_kw, 6, x)
+    ref = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    return cfg_kw, port_import.state_dict_from_flax(params), x, ref
+
+
+@pytest.mark.parametrize("impl", ["auto", "lax", "pallas_cf",
+                                  "pallas_cf_tail", "pallas", "pallas_fused"])
+def test_any_dense_conv_count_matches_jax_lax(impl):
+    """``n_dense_convs=4, growth=4``: the port builds conv1..conv4 per
+    dense block, loads the JAX model's weights with strict=True and
+    matches it under every conv impl on the CPU."""
+    cfg_kw, sd, x, ref = _four_conv_reference()
+    model = RRDBNet(GeneratorConfig(conv_impl=impl, **cfg_kw))
+    assert not hasattr(model.body[0].rdb1, "conv5")
+    model.load_state_dict(sd, strict=True)
+    model.prepare(torch.float32)
+    with torch.inference_mode():
+        got = model(torch.from_numpy(x)).numpy()
+    assert got.shape == ref.shape == (1, 40, 48, 3)
+    np.testing.assert_allclose(got, ref, atol=2e-5, rtol=1e-4)
