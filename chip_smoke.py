@@ -85,13 +85,19 @@ and prints no result line:
    fp32 shape: five launches per call on each wrapper's counter, the
    plain version within the forward tolerances, wrapper ms (weight
    packing included), the bound and cuDNN's time.
-11. kernel-int8: the int8 kernel of v8 at (8, 64, 128, 128) bf16, rows
-   16 and 32, and at an fp32 shape of growth 8: against its plain
-   version within one ULP of x's dtype (the share of differing values
-   printed), within 0.02 of the largest |y| of the bf16 dense-block
-   kernel, rows 16 and 32 giving other values (band-local scales), ten
-   launches per call, ms in turns with plain and the kernels' device
-   time alone (``torch.profiler``), the int8 bound.
+11. kernel-int8: the int8 kernels of v8 (weight prep, banding, the s8
+   wgmma conv) at (8, 64, 128, 128) bf16, rows 16 and 32, and at an
+   fp32 shape of growth 8: against its plain version within one ULP of
+   x's dtype (the share of differing values printed), within 0.02 of
+   the largest |y| of the bf16 dense-block kernel, rows 16 and 32
+   giving other values (band-local scales), n + 2 = 7 launches per
+   call, ms in turns with plain, the kernels' device time alone and by
+   kernel (``torch.profiler``) beside the bf16 dense block's in the
+   same call, the int8 bound; with ``CHIP_SMOKE_PARENT`` naming a
+   checkout of an earlier commit, that commit's v8 on the same inputs,
+   value for value.  The ``[build]`` lines give ptxas's report and
+   plans of the int8 conv and, from ``cuobjdump -sass``, its int8 GMMA
+   instructions (and that the library has no ``mma.sync``).
 12. contract: the dense block's calling contract at five geometries
    (conv counts 3-5, channels and growth that are not multiples of 8,
    widths above 64), bf16 and fp32: the forward NCHW and NHWC, the
@@ -757,7 +763,9 @@ def forward_flops(gcfg, b, h, w):
 # names of the port's own kernels in a profile (csrc/*.cu)
 OWN_KERNELS = ("conv3x3_", "dgrad3x3", "wgrad3x3", "wgrad_reduce",
                "wgrad_wgmma", "bwd_prep", "bwd_reduce", "conv_int8",
-               "amax_kernel")
+               "int8_prep", "int8_band")
+# v8's kernels (csrc/dense_block_int8.cu), by name in a profile
+INT8_KERNELS = ("int8_prep_weights", "int8_band", "conv_int8_wgmma")
 # the bf16 backward's kernels (csrc/dense_block_bwd.cu): its data
 # gradient is the Hopper tile's conv3x3_wgmma with the backward epilogues
 # (template <N, K chunk, float, true>)
@@ -1858,27 +1866,131 @@ def contract_phase():
     return results
 
 
-def int8_bound(shape, growth, rows, dtype_name):
-    """(bound_ms, bound_by, ops, bytes) of the int8 block: every band's
-    convs over its own window rows (the halo recompute counted) at the
-    int8 peak, against x read and y written once."""
+def int8_bound(shape, growth, rows, dtype_name, n=5):
+    """(bound_ms, bound_by, ops, bytes) of the n-conv int8 block: every
+    band's convs over its own window rows (the halo recompute counted) at
+    the int8 peak, against each input (x, weights, biases) read once and
+    y written once."""
     b, c, h, w = shape
-    macs, cin = 0, c
-    for k in range(5):
-        cout = c if k == 4 else growth
-        out_rows = rows + 2 * (5 - k - 1)
-        macs += out_rows * cin * cout * 9
-        cin += growth
+    elt = 2 if dtype_name == "bfloat16" else 4
+    convs = block_convs(c, growth, n)
+    macs = sum((rows + 2 * (n - k - 1)) * 9 * cin * cout
+               for k, (cin, cout) in enumerate(convs))
     ops = 2 * macs * w * b * (h // rows)
-    nbytes = 2 * b * c * h * w * (2 if dtype_name == "bfloat16" else 4)
+    nbytes = 2 * b * c * h * w * elt + sum(9 * cin * cout * elt + 4 * cout
+                                           for cin, cout in convs)
     t_ops, t_bytes = ops / PEAK_FLOPS["int8"], nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
 
 
+def int8_sass_line(build):
+    """From ``cuobjdump -sass`` of the int8 library: the int8 GMMA
+    (wgmma) instructions of each conv instantiation, and the library's
+    mma.sync (IMMA / HMMA) instructions, which must be none."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return "[build] cuobjdump -sass, dense_block_int8: not measured " \
+            "(no cuobjdump)", True
+    out = subprocess.run([tool, "-sass", build.library_path(
+        "dense_block_int8")], capture_output=True, text=True, timeout=300,
+        check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = {"IGMMA": 0, "HGMMA": 0, "mma.sync": 0}
+        elif name is not None:
+            op = re.search(r"\b(IGMMA|HGMMA|IMMA|HMMA)\.", line)
+            if op:
+                key = op.group(1) if "GMMA" in op.group(1) else "mma.sync"
+                counts[name][key] += 1
+    pat = re.compile(r"conv_int8_wgmmaILi(\d+)E(13__nv_bfloat16|f)")
+    convs = {}
+    for fn, cnt in counts.items():
+        m = pat.search(fn)
+        if m:
+            convs[f"<{m.group(1)},{'bf16' if m.group(2) != 'f' else 'f32'}>"
+                  ] = cnt["IGMMA"]
+    mma_sync = sum(c["mma.sync"] for c in counts.values())
+    ok = bool(convs) and all(convs.values()) and mma_sync == 0
+    return ("[build] cuobjdump -sass, dense_block_int8: IGMMA (s8 wgmma) "
+            f"instructions per conv_int8_wgmma instantiation {convs}; "
+            f"mma.sync (IMMA/HMMA) in the library: {mma_sync} "
+            f"({len(counts)} kernels)"), ok
+
+
+def int8_build_lines(build):
+    """ptxas's report of the int8 library's kernels, and the conv's plan
+    at the flagship block's shapes in both dtypes."""
+    import re
+
+    import torch
+
+    from super_resolution_tpu_torch.ops import experiments_dense_block as ex
+
+    parts = []
+    for k in build.ptxas_report("dense_block_int8"):
+        m = re.search(r"conv_int8_wgmmaILi(\d+)E(13__nv_bfloat16|f)",
+                      k["kernel"])
+        name = (f"conv_int8_wgmma<{m.group(1)},"
+                f"{'bf16' if m.group(2) != 'f' else 'f32'}>" if m else
+                next((n for n in ("int8_prep_weights", "int8_band")
+                      if n in k["kernel"]), k["kernel"][:40]))
+        parts.append(f"{name} {k['registers']} regs, spills "
+                     f"{k['spill_stores']}/{k['spill_loads']} B"
+                     + (f", {len(k['notes'])} wgmma notes: {k['notes']}"
+                        if k["notes"] else ""))
+    plans = {f"{dt}:{cin}->{cout}": ex.int8_plan(cout, cin,
+                                                  getattr(torch, dt))
+             for dt in ("bfloat16", "float32")
+             for cin, cout in block_convs(64, 32) + [(384, 96)]}
+    return ["[build] ptxas -v, dense_block_int8: " + "; ".join(parts),
+            "[build] int8 plans " + json.dumps(plans)]
+
+
+def parent_int8(cases):
+    """v8 of the checkout named by CHIP_SMOKE_PARENT (an earlier commit)
+    on the same inputs, in a subprocess with its own build: name -> y on
+    the card, or None where no parent is named."""
+    import torch
+
+    parent = os.environ.get("CHIP_SMOKE_PARENT")
+    if not parent:
+        return None
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({k: [v[0].cpu(), [w.cpu() for w in v[1]],
+                        [b.cpu() for b in v[2]], v[3]]
+                    for k, v in cases.items()}, os.path.join(tmp, "in.pt"))
+        code = (
+            "import sys, torch\n"
+            f"sys.path.insert(0, {os.path.abspath(parent)!r})\n"
+            "from super_resolution_tpu_torch.ops import "
+            "experiments_dense_block as ex\n"
+            f"d = torch.load({os.path.join(tmp, 'in.pt')!r})\n"
+            "out = {}\n"
+            "with torch.inference_mode():\n"
+            "    for k, (x, ws, bs, rows) in d.items():\n"
+            "        out[k] = ex.fused_dense_block_cf8(x.cuda(), "
+            "[w.cuda() for w in ws], [b.cuda() for b in bs], "
+            "rows=rows).cpu()\n"
+            f"torch.save(out, {os.path.join(tmp, 'out.pt')!r})\n")
+        proc = subprocess.run([sys.executable, "-c", code],
+                              cwd=os.path.abspath(parent),
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"the parent's v8 failed: {proc.stderr[-2000:]}")
+        return torch.load(os.path.join(tmp, "out.pt"))
+
+
 def int8_phase():
-    """v8: the int8 kernel against its plain version and against the
-    bf16 dense-block kernel."""
+    """v8: the int8 kernels against their plain version, against the
+    bf16 dense-block kernel and, where named, against an earlier
+    commit's v8."""
     import torch
 
     from super_resolution_tpu_torch.device import no_tf32
@@ -1889,10 +2001,11 @@ def int8_phase():
     cases = [("flagship_rows16", (8, 64, 128, 128), 32, "bfloat16", 16),
              ("flagship_rows32", (8, 64, 128, 128), 32, "bfloat16", 32),
              ("fp32_growth8", (2, 16, 48, 40), 8, "float32", 8)]
-    results, outs = {}, {}
+    results, outs, inputs = {}, {}, {}
     for name, shape, growth, dtype_name, rows in cases:
         dtype = getattr(torch, dtype_name)
         x, ws, wp, ws_oihw, bs = hwio_block(shape, growth, dtype, 600)
+        inputs[name] = (x, ws, bs, rows)
         with torch.inference_mode(), no_tf32():
             before = fn.launches
             y = fn(x, ws, bs, rows=rows)
@@ -1911,9 +2024,16 @@ def int8_phase():
                         "kernel": lambda: fn(x, ws, bs, rows=rows),
                         "library": lambda: cudnn_block(x, ws_oihw, bs)},
                        10)
-            # the wrapper's time includes its eager glue (weight
-            # quantization, the banded copy of x); the kernels alone:
-            dev_ms = own_device_ms(lambda: fn(x, ws, bs, rows=rows))
+            # the kernels alone, by name, and the bf16 dense block's
+            # kernel on the same block in the same call, as the yardstick
+            calls = 5
+            _, by_name = device_times(
+                lambda: [fn(x, ws, bs, rows=rows) for _ in range(calls)])
+            by_kernel = {k: sum(t for n_, t in by_name.items() if k in n_)
+                         / calls for k in INT8_KERNELS}
+            dev_ms = sum(by_kernel.values()) if by_name else None
+            block_dev_ms = own_device_ms(
+                lambda: dense_block(x, wp, bs, res_scale=0.2, slope=0.2))
         outs[name] = y
         bound_ms, bound_by, ops, nbytes = int8_bound(shape, growth, rows,
                                                      dtype_name)
@@ -1923,15 +2043,19 @@ def int8_phase():
             share_differing=(diff > 0).float().mean().item(),
             within_one_ulp=within_ulp, rel_to_bf16_block=class_rel,
             kernel_ms=ms["kernel"], kernels_device_ms=dev_ms,
+            kernels_device_ms_by_name=by_kernel if by_name else None,
+            bf16_block_device_ms=block_dev_ms,
             plain_ms=ms["plain"], library_ms=None,
             cudnn_block_ms=ms["library"],
             bound_ms=bound_ms, bound_by=bound_by, ops=ops, bytes=nbytes,
             roofline_share=bound_ms / ms["kernel"],
+            device_roofline_share=(bound_ms / dev_ms if dev_ms else None),
             tops=ops / (ms["kernel"] * 1e-3) / 1e12)
         print("[kernel-int8] " + json.dumps({name: results[name]}),
               flush=True)
-        if per_call != ex.INT8_LAUNCHES_PER_CALL:
-            fail(f"int8 {name}: one call made {per_call} launches")
+        if per_call != ex.int8_launches(len(ws)):
+            fail(f"int8 {name}: one call made {per_call} launches, want "
+                 f"{ex.int8_launches(len(ws))}")
         if not (finite and within_ulp and y.shape == ref.shape):
             fail(f"int8 {name}: kernel differs from its plain version by "
                  f"more than one ULP of {dtype_name} (max |err| "
@@ -1948,6 +2072,21 @@ def int8_phase():
         fail("the int8 block gave the same values at rows 16 and 32: its "
              "scales are not band-local")
     results["rows16_vs_rows32_share_differing"] = differ
+    parent = parent_int8(inputs)
+    if parent is None:
+        print("[kernel-int8] parent kernel: not compared (CHIP_SMOKE_PARENT "
+              "names no checkout)", flush=True)
+    else:
+        same = {k: dict(equal=bool(torch.equal(outs[k].cpu(), v)),
+                        share_differing=(outs[k].cpu() != v).float().mean()
+                        .item(),
+                        max_abs_diff=(outs[k].cpu().float() - v.float())
+                        .abs().max().item())
+                for k, v in parent.items()}
+        print("[kernel-int8] parent kernel "
+              f"({os.environ['CHIP_SMOKE_PARENT']}), value for value: "
+              + json.dumps(same), flush=True)
+        results["parent_equal"] = same
     return results
 
 
@@ -2005,6 +2144,14 @@ def tools_phase():
             if not kb_launches.get(n)]
     if idle:
         fail(f"kernel_bench launched no kernel through {idle}")
+    # v8's launches by its formula: two variants (rows 16 and 32), each
+    # a warm-up and timed calls, n + 2 launches a call
+    from super_resolution_tpu_torch.ops.experiments_dense_block import (
+        INT8_LAUNCHES_PER_CALL)
+    v8_launches = kb_launches["fused_dense_block_cf8"]
+    if v8_launches % INT8_LAUNCHES_PER_CALL:
+        fail(f"kernel_bench's v8 launched {v8_launches}, not a multiple of "
+             f"{INT8_LAUNCHES_PER_CALL} (n + 2 a call)")
 
     out = run_tool("model_bench", ["--variants", ",".join(MODEL_VARIANTS),
                                    "--iters", "3"], 900)
@@ -2108,6 +2255,13 @@ def main() -> int:
     for line in ptxas_lines(build):
         print(line, flush=True)
     print(plan_line(), flush=True)
+    for line in int8_build_lines(build):
+        print(line, flush=True)
+    line, sass_ok = int8_sass_line(build)
+    print(line, flush=True)
+    if not sass_ok:
+        fail("the int8 conv is not on s8 wgmma (no IGMMA in an "
+             "instantiation) or the int8 library has mma.sync")
     tile_checks_phase()
 
     kern = kernel_phase()
@@ -2239,8 +2393,17 @@ def main() -> int:
         # scale
         "library_ms": None,
         "cudnn_bf16_block_ms": int8["flagship_rows16"]["cudnn_block_ms"],
+        # row 11's kernels: n + 2 launches a call
+        "kernels": list(INT8_KERNELS),
+        "launches_per_call": int8["flagship_rows16"]["launches_per_call"],
         "kernels_device_ms": int8["flagship_rows16"]["kernels_device_ms"],
+        "kernels_device_ms_by_name":
+            int8["flagship_rows16"]["kernels_device_ms_by_name"],
+        "bf16_block_device_ms":
+            int8["flagship_rows16"]["bf16_block_device_ms"],
         "ms_rows32": int8["flagship_rows32"]["kernel_ms"],
+        "kernels_device_ms_rows32":
+            int8["flagship_rows32"]["kernels_device_ms"],
     }]}))
     print(smi)                       # card name, power limit
     print(json.dumps({"ok": True, "device": {

@@ -33,12 +33,15 @@ port's tools do (``tools.kernel_bench``, ``tools.model_bench``,
   ``((left + mid) + right) + b`` in f32, ``left + mid`` as one FMA.  A
   band recomputes its 2n halo rows with its own scales, so the result
   depends on ``rows``.  On a CUDA tensor it launches
-  ``csrc/dense_block_int8.cu`` (an amax kernel and an int8 ``mma.sync``
-  conv kernel per conv: 2n launches), with C and G padded to multiples
-  of 8 inside its banded buffer and the weights, whose zeros change no
-  amax, no weight scale (an all-zero row gets the JAX kernel's scale
-  ``1e-12 / 127`` and quantizes to 0) and no int32 sum; on a CPU tensor
-  it runs :func:`fused_dense_block_cf8_plain`.
+  ``csrc/dense_block_int8.cu``: one weight-prep launch for all convs
+  (:func:`prep_weights_plain` is its plain version), one banding launch
+  of x (:func:`band_plain`), and one int8 ``wgmma`` conv per conv, whose
+  epilogue gathers the row maxima from which the next conv takes its
+  amax (:func:`fused_amax_plain`): n + 2 launches.  C and G are padded
+  to multiples of 8 inside the banded buffer and the weights, whose
+  zeros change no amax, no weight scale (an all-zero row gets the JAX
+  kernel's scale ``1e-12 / 127`` and quantizes to 0) and no int32 sum.
+  On a CPU tensor it runs :func:`fused_dense_block_cf8_plain`.
 
 Two steps follow what XLA makes of the JAX kernel (checked against it
 in interpret mode on the CPU): ``x / 127.0`` is folded into a
@@ -58,31 +61,33 @@ GOP, about 0.036 ms at 1,979 TOP/s, against 33.6 MB of x and y, about
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+import functools
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from super_resolution_tpu_torch.ops.dense_block import (
     N_CONVS,
+    Layout,
     _check,
     _launch_block,
-    _padded_params,
     dense_block_plain,
     layout,
     pack_weight,
     split_features,
-    unpack_weight,
 )
 
 
 def int8_launches(n: int) -> int:
-    """Launches of one v8 call with n convs: an amax and a conv each."""
-    return 2 * n
+    """Launches of one v8 call with n convs: the weight prep, the banding
+    of x, and one conv each."""
+    return n + 2
 
 
 INT8_LAUNCHES_PER_CALL = int8_launches(N_CONVS)
-INT8_CHUNK = 32                # channels per int8 mma step (k32)
+INT8_CHUNK = 32                # channels per int8 wgmma K step (k32)
+INT8_MAX_CONVS = 64            # convs of one weight-prep launch (csrc)
 # float32 1/127: XLA's fold of the JAX kernel's ``/ 127.0``
 RECIP127 = float(torch.tensor(1.0) / torch.tensor(127.0))
 
@@ -186,9 +191,9 @@ for _fn in (fused_dense_block_cf, fused_dense_block_cf2,
 
 def quantize_weights(weights: Sequence[torch.Tensor]
                      ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-    """v8's weight preparation: per conv the packed (3F, 3C) weights
-    rounded to integers in [-127, 127] (held as float32) and the (3F,)
-    float32 scale of each row."""
+    """v8's weight quantization, as the JAX kernel takes it: per conv the
+    packed (3F, 3C) weights rounded to integers in [-127, 127] (held as
+    float32) and the (3F,) float32 scale of each row."""
     wqs, sws = [], []
     for wk in weights:
         wp = pack_weights_v6(wk).float()
@@ -240,17 +245,41 @@ def _check_int8(x: torch.Tensor, weights: Sequence[torch.Tensor],
     return growth
 
 
+def band_row_max(t: torch.Tensor) -> torch.Tensor:
+    """(B, n_bands, C, band_rows, W) -> (B·n_bands, band_rows): each band
+    row's max |v| over channels and width, in float32."""
+    b, nb, _, band_rows, _ = t.shape
+    return t.float().abs().amax((2, 4)).reshape(b * nb, band_rows)
+
+
+def fused_amax_plain(row_max: torch.Tensor, k: int) -> torch.Tensor:
+    """The plain version of the conv's fused amax: ``row_max`` (n slices,
+    B·n_bands, band_rows) holds each slice's row maxima (slice 0 x, slice
+    j the output of conv j - 1); conv k's amax is the max of slices
+    0..k over band rows [k, band_rows - k).  Returns (B·n_bands,)."""
+    band_rows = row_max.shape[2]
+    return row_max[:k + 1, :, k:band_rows - k].amax((0, 2))
+
+
 def fused_dense_block_cf8_plain(x: torch.Tensor,
                                 weights: Sequence[torch.Tensor],
                                 biases: Sequence[torch.Tensor], *,
                                 rows: int = 16, res_scale: float = 0.2,
-                                slope: float = 0.2) -> torch.Tensor:
+                                slope: float = 0.2,
+                                record: Optional[dict] = None
+                                ) -> torch.Tensor:
     """The plain PyTorch version of v8, step by step as the JAX kernel
     takes them, all bands at once: quantized operands are integers held
     in float32 and their products are summed by ``torch.matmul``, which
     is exact while every partial sum stays below 2^24 (3·C_k·127², C_k up
     to 346 input channels; TF32 off), and in float64 for wider convs;
-    the int32 sum then rounds to float32 as the kernels convert it."""
+    the int32 sum then rounds to float32 as the kernels convert it.
+
+    ``record``, if given, receives ``window_amax``: per conv the amax of
+    its input window as the JAX kernel takes it, (B·n_bands,) each, and
+    ``row_max``: (n, B·n_bands, band_rows), the row maxima of each slice
+    as the kernels' epilogues gather them (slice j + 1 from conv j's
+    stored output, zero outside the rows it writes)."""
     _check_int8(x, weights, biases, rows)
     b, c, h, w = x.shape
     n = halo = len(weights)
@@ -259,6 +288,8 @@ def fused_dense_block_cf8_plain(x: torch.Tensor,
     wqs, sws = quantize_weights(weights)
     bands = _bands(x, rows, halo)                 # (B, nb, C, rows+2n, W)
     feats = bands.float()
+    row_max = [band_row_max(feats)]
+    window_amax = []
     band_row0 = torch.arange(n_bands, device=x.device) * rows
     prev_tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -268,7 +299,9 @@ def fused_dense_block_cf8_plain(x: torch.Tensor,
             cout = wqs[k].shape[0] // 3
             out_rows = band_rows - 2 * k - 2
             win = feats[:, :, :, k:band_rows - k]    # (B, nb, C_k, out+2, W)
-            s_x = win.abs().amax((2, 3, 4)).clamp_min(1e-6) * RECIP127
+            amax = win.abs().amax((2, 3, 4))
+            window_amax.append(amax.reshape(-1))
+            s_x = amax.clamp_min(1e-6) * RECIP127
             q = torch.round(win * torch.reciprocal(s_x)[..., None, None,
                                                          None])
             q = q.clamp(-127.0, 127.0)
@@ -299,12 +332,125 @@ def fused_dense_block_cf8_plain(x: torch.Tensor,
             if not last:
                 full = out.new_zeros((b, n_bands, cout, band_rows, w))
                 full[:, :, :, k + 1:k + 1 + out_rows] = out
+                row_max.append(band_row_max(full))
                 feats = torch.cat([feats, full], 2)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev_tf32
+    if record is not None:
+        record["window_amax"] = window_amax
+        record["row_max"] = torch.stack(row_max)
     x_center = bands[:, :, :, halo:halo + rows].float()
     y = (x_center + res_scale * out).to(dtype)      # (B, nb, C, rows, W)
     return y.permute(0, 2, 1, 3, 4).reshape(b, c, h, w)
+
+
+# ---- the CUDA path: csrc/dense_block_int8.cu ----
+
+def _round_up(v: int, a: int) -> int:
+    return -(-v // a) * a
+
+
+class Int8Conv(NamedTuple):
+    """Conv k's operands in the scratch buffer (byte offsets) and its
+    widths: it reads the buffer prefix ``cin_p`` and writes ``cout_p``
+    channels (the last conv: C); its int8 weights are (9, cout_p,
+    cpad)."""
+    wq_off: int
+    sw_off: int
+    bias_off: int
+    cin_p: int
+    cout_p: int
+    cpad: int
+
+
+class Int8Scratch(NamedTuple):
+    """The one scratch buffer of a call: the amax array (n slices,
+    B·n_bands, band_rows) uint32 at offset 0, then each conv's weights,
+    scales and biases, each region aligned to 256 bytes."""
+    convs: Tuple[Int8Conv, ...]
+    amax_words: int
+    nbytes: int
+
+
+@functools.lru_cache(maxsize=64)
+def int8_scratch(lay: Layout, n_bb: int, band_rows: int) -> Int8Scratch:
+    """Where the weight-prep launch writes conv k's operands."""
+    n = lay.n
+    words = n * n_bb * band_rows
+    off = _round_up(4 * words, 256)
+    convs = []
+    for k in range(n):
+        last = k == n - 1
+        cin_p = lay.offset(k + 1)
+        cout_p = lay.c if last else lay.gp
+        cpad = _round_up(cin_p, INT8_CHUNK)
+        wq = off
+        off = _round_up(off + 9 * cout_p * cpad, 256)
+        sw = off
+        off = _round_up(off + 4 * 3 * cout_p, 256)
+        bias = off
+        off = _round_up(off + 4 * cout_p, 256)
+        convs.append(Int8Conv(wq, sw, bias, cin_p, cout_p, cpad))
+    return Int8Scratch(tuple(convs), words, off)
+
+
+def prep_weights_plain(weights: Sequence[torch.Tensor],
+                       biases: Sequence[torch.Tensor], lay: Layout
+                       ) -> List[Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]]:
+    """The plain version of the weight-prep launch: per conv its int8
+    (9, cout_p, cpad) weights (tap dy·3 + dx; each real input channel at
+    its buffer position, zeros elsewhere), its (3·cout_p,) float32 scales
+    (row dx·cout_p + f; padded rows get 1e-12/127) and its (cout_p,)
+    float32 biases (0 on padded outputs)."""
+    scratch = int8_scratch(lay, 1, 1)
+    wqs, sws = quantize_weights(weights)
+    zero_scale = torch.full((), 1e-12, dtype=torch.float32) * RECIP127
+    out = []
+    for k, (wq, s, bk) in enumerate(zip(wqs, sws, biases)):
+        conv = scratch.convs[k]
+        cout, cin = wq.shape[0] // 3, wq.shape[1] // 3
+        # (dx, f, dy, c) -> (dy, dx, f, c)
+        w4 = wq.reshape(3, cout, 3, cin).permute(2, 0, 1, 3)
+        q = torch.zeros((3, 3, conv.cout_p, conv.cpad), dtype=torch.int8,
+                        device=wq.device)
+        pos = torch.from_numpy(lay.positions(cin)).to(wq.device)
+        q[:, :, :cout, pos] = w4.to(torch.int8)
+        sw = zero_scale.to(wq.device).repeat(3, conv.cout_p)
+        sw[:, :cout] = s.reshape(3, cout)
+        bias = torch.zeros(conv.cout_p, dtype=torch.float32,
+                           device=wq.device)
+        bias[:cout] = bk.float()
+        out.append((q.reshape(9, conv.cout_p, conv.cpad), sw.reshape(-1),
+                    bias))
+    return out
+
+
+def band_plain(x: torch.Tensor, rows: int, lay: Layout
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the banding launch: the buffer's slice 0,
+    (B·n_bands, band_rows, W, cp) in x's dtype (zero rows outside the
+    image, zero channels [C, cp)), and amax slice 0, (B·n_bands,
+    band_rows) float32 row maxima of |x|."""
+    b, c, h, w = x.shape
+    bands = _bands(x, rows, lay.n)                   # (B, nb, C, br, W)
+    nb, br = bands.shape[1], bands.shape[3]
+    buf = x.new_zeros((b * nb, br, w, lay.cp))
+    buf[..., :c] = bands.permute(0, 1, 3, 4, 2).reshape(b * nb, br, w, c)
+    return buf, band_row_max(bands)
+
+
+class _PrepArgs(ctypes.Structure):
+    _fields_ = [("w", ctypes.c_void_p * INT8_MAX_CONVS),
+                ("b", ctypes.c_void_p * INT8_MAX_CONVS),
+                ("ws", (ctypes.c_int * 4) * INT8_MAX_CONVS),
+                ("wq_off", ctypes.c_longlong * INT8_MAX_CONVS),
+                ("sw_off", ctypes.c_longlong * INT8_MAX_CONVS),
+                ("bias_off", ctypes.c_longlong * INT8_MAX_CONVS),
+                ("scratch", ctypes.c_void_p),
+                ("n", ctypes.c_int), ("c", ctypes.c_int),
+                ("g", ctypes.c_int), ("cp", ctypes.c_int),
+                ("gp", ctypes.c_int), ("w_bf16", ctypes.c_int)]
 
 
 def _lib_int8() -> ctypes.CDLL:
@@ -313,26 +459,76 @@ def _lib_int8() -> ctypes.CDLL:
     lib = load("dense_block_int8")
     if lib.dense_block_int8_conv.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.dense_block_int8_amax.argtypes = [i, vp, i, i, i, i, i, i, i,
-                                              vp, vp]
-        lib.dense_block_int8_amax.restype = i
+        lib.dense_block_int8_prep.argtypes = [vp, vp]
+        lib.dense_block_int8_prep.restype = i
+        lib.dense_block_int8_band.argtypes = [i, vp, vp, vp] + [i] * 9 + [vp]
+        lib.dense_block_int8_band.restype = i
         lib.dense_block_int8_conv.argtypes = [
             i, vp, i, i, i, i, vp, i, vp, vp, i, vp, vp, i, i, i, i, i, f,
             f, i, vp, vp]
         lib.dense_block_int8_conv.restype = i
+        lib.dense_block_int8_plan.argtypes = [i, i, i,
+                                              ctypes.POINTER(ctypes.c_int)]
+        lib.dense_block_int8_plan.restype = i
         lib.dense_block_int8_error_string.argtypes = [i]
         lib.dense_block_int8_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def kernel_weights(wq: torch.Tensor, cout: int) -> Tuple[torch.Tensor, int]:
-    """(3F, 3C) quantized weights -> the kernel's int8 (3 dy, 3 dx, F,
-    C_pad), channels zero-padded to a multiple of 32; returns it and
-    C_pad."""
-    c = wq.shape[1] // 3
-    c_pad = -(-c // INT8_CHUNK) * INT8_CHUNK
-    w4 = wq.reshape(3, cout, 3, c).permute(2, 0, 1, 3)
-    return F.pad(w4, (0, c_pad - c)).to(torch.int8).contiguous(), c_pad
+def _raise_int8(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.dense_block_int8_error_string(rc).decode()
+        raise RuntimeError(f"fused_dense_block_cf8 {what}: kernel launch "
+                           f"failed with CUDA error {rc} ({msg})")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def int8_prep(counter, weights: Sequence[torch.Tensor],
+              biases: Sequence[torch.Tensor], lay: Layout,
+              scratch: torch.Tensor, plan: Int8Scratch) -> None:
+    """The weight-prep launch on the card: every conv's int8 weights,
+    scales and biases into ``scratch`` at ``plan``'s offsets (one launch,
+    counted in ``counter.launches``)."""
+    if lay.n > INT8_MAX_CONVS:
+        raise ValueError(f"the int8 block's CUDA path takes at most "
+                         f"{INT8_MAX_CONVS} convs, got {lay.n}")
+    w_bf16 = all(wk.dtype == torch.bfloat16 for wk in weights)
+    wdt = torch.bfloat16 if w_bf16 else torch.float32
+    # no copy for weights of one dtype (read through their strides: an
+    # HWIO view of OIHW weights is read as it is) and f32 biases
+    ws = [wk if wk.dtype == wdt else wk.to(wdt) for wk in weights]
+    bs = [bk if bk.dtype == torch.float32 and bk.is_contiguous()
+          else bk.to(torch.float32).contiguous() for bk in biases]
+    a = _PrepArgs()
+    for k, (wk, bk, conv) in enumerate(zip(ws, bs, plan.convs)):
+        a.w[k], a.b[k] = wk.data_ptr(), bk.data_ptr()
+        a.ws[k][:] = wk.stride()
+        a.wq_off[k], a.sw_off[k], a.bias_off[k] = (conv.wq_off, conv.sw_off,
+                                                   conv.bias_off)
+    a.scratch = scratch.data_ptr()
+    a.n, a.c, a.g, a.cp, a.gp, a.w_bf16 = (lay.n, lay.c, lay.g, lay.cp,
+                                           lay.gp, int(w_bf16))
+    lib = _lib_int8()
+    _raise_int8(lib, lib.dense_block_int8_prep(ctypes.byref(a),
+                                               _stream(scratch)), "prep")
+    counter.launches += 1
+
+
+def int8_band(counter, x: torch.Tensor, rows: int, lay: Layout,
+              buf: torch.Tensor, amax: torch.Tensor) -> None:
+    """The banding launch on the card: x into ``buf``'s slice 0 and its
+    row maxima into ``amax`` slice 0, the other slices zeroed (one
+    launch, counted in ``counter.launches``)."""
+    b, c, h, w = x.shape
+    lib = _lib_int8()
+    _raise_int8(lib, lib.dense_block_int8_band(
+        int(x.dtype == torch.bfloat16), x.data_ptr(), buf.data_ptr(),
+        amax.data_ptr(), b, c, h, w, rows, lay.n, lay.cp, lay.c_total,
+        lay.n, _stream(x)), "band")
+    counter.launches += 1
 
 
 def fused_dense_block_cf8(x: torch.Tensor, weights: Sequence[torch.Tensor],
@@ -341,7 +537,7 @@ def fused_dense_block_cf8(x: torch.Tensor, weights: Sequence[torch.Tensor],
                           slope: float = 0.2) -> torch.Tensor:
     """v8, the int8 dense block with dynamic quantization; the contract
     of :func:`fused_dense_block_cf`.  On a CUDA tensor the kernels of
-    ``csrc/dense_block_int8.cu`` (2n launches, counted in
+    ``csrc/dense_block_int8.cu`` (n + 2 launches, counted in
     ``fused_dense_block_cf8.launches``) or an error; on a CPU tensor
     :func:`fused_dense_block_cf8_plain`."""
     growth = _check_int8(x, weights, biases, rows)
@@ -351,60 +547,47 @@ def fused_dense_block_cf8(x: torch.Tensor, weights: Sequence[torch.Tensor],
     if x.device.type != "cuda":
         raise ValueError(f"fused_dense_block_cf8 runs on cuda or cpu, not "
                          f"{x.device}")
-    lib = _lib_int8()
     b, c, h, w = x.shape
     n = halo = len(weights)
     n_bands, band_rows = h // rows, rows + 2 * halo
     # 8-channel pieces in both dtypes: the layout of a bf16 buffer
     lay = layout(c, growth, n, torch.bfloat16)
-    is_bf16 = int(x.dtype == torch.bfloat16)
+    plan = int8_scratch(lay, b * n_bands, band_rows)
+    counter = fused_dense_block_cf8
     with torch.cuda.device(x.device):
-        if lay.padded:
-            # at the buffer's widths: each real channel at its place,
-            # zero rows, columns and biases elsewhere
-            wp, biases = _padded_params(
-                [pack_weight(w.permute(3, 2, 0, 1)) for w in weights],
-                biases, lay)
-            weights = [unpack_weight(w).permute(2, 3, 1, 0) for w in wp]
-        wqs, sws = quantize_weights(weights)
-        bias = [bk.float().contiguous() for bk in biases]
-        # the banded channels-last buffer: x in channels [0, C), then each
-        # conv's slice, band by band (a band's halo rows are its own)
-        buf = torch.empty((b, n_bands, band_rows, w, lay.c_total),
+        buf = torch.empty((b * n_bands, band_rows, w, lay.c_total),
                           dtype=x.dtype, device=x.device)
-        buf[..., :c].copy_(_bands(x, rows, halo).permute(0, 1, 3, 4, 2))
-        if lay.cp > c:
-            buf[..., c:lay.cp].zero_()
-        amax = torch.zeros((n, b * n_bands), dtype=torch.int32,
-                           device=x.device)
+        scratch = torch.empty(plan.nbytes, dtype=torch.uint8,
+                              device=x.device)
         y = torch.empty_like(x)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        for k in range(n):
-            last = k == n - 1
-            cin = lay.offset(k + 1)          # conv k's padded input
-            cout = wqs[k].shape[0] // 3
-            wq8, c_pad = kernel_weights(wqs[k], cout)
-            rc = lib.dense_block_int8_amax(
-                is_bf16, buf.data_ptr(), lay.c_total, cin, k, halo, rows,
-                b * n_bands, w, amax[k].data_ptr(), stream)
-            _raise_int8(lib, rc, f"amax{k + 1}")
-            fused_dense_block_cf8.launches += 1
+        int8_prep(counter, weights, biases, lay, scratch, plan)
+        int8_band(counter, x, rows, lay, buf, scratch)
+        lib = _lib_int8()
+        base, stream = scratch.data_ptr(), _stream(x)
+        for k, conv in enumerate(plan.convs):
             rc = lib.dense_block_int8_conv(
-                is_bf16, buf.data_ptr(), lay.c_total, cin, k, halo,
-                wq8.data_ptr(), c_pad, sws[k].data_ptr(), bias[k].data_ptr(),
-                cout, y.data_ptr(), x.data_ptr(), b, n_bands, rows, h, w,
-                float(slope), float(res_scale), int(last),
-                amax[k].data_ptr(), stream)
+                int(x.dtype == torch.bfloat16), buf.data_ptr(), lay.c_total,
+                conv.cin_p, k, halo, base + conv.wq_off, conv.cpad,
+                base + conv.sw_off, base + conv.bias_off, conv.cout_p,
+                y.data_ptr(), x.data_ptr(), b, n_bands, rows, h, w,
+                float(slope), float(res_scale), int(k == n - 1), base,
+                stream)
             _raise_int8(lib, rc, f"conv{k + 1}")
-            fused_dense_block_cf8.launches += 1
+            counter.launches += 1
     return y
 
 
 fused_dense_block_cf8.launches = 0
 
 
-def _raise_int8(lib, rc: int, what: str) -> None:
-    if rc != 0:
-        msg = lib.dense_block_int8_error_string(rc).decode()
-        raise RuntimeError(f"fused_dense_block_cf8 {what}: kernel launch "
-                           f"failed with CUDA error {rc} ({msg})")
+def int8_plan(cout: int, cin: int, dtype: torch.dtype) -> dict:
+    """The int8 conv's plan on the card for cout, cin (buffer channels)
+    and x's dtype: N, unit rows, stages, weights resident, dynamic shared
+    memory."""
+    lib = _lib_int8()
+    out = (ctypes.c_int * 5)()
+    rc = lib.dense_block_int8_plan(cout, cin, int(dtype == torch.bfloat16),
+                                   out)
+    _raise_int8(lib, rc, f"plan {cin} -> {cout}")
+    return dict(zip(("n", "unit_rows", "stages", "weights_resident",
+                     "smem_bytes"), list(out)))

@@ -537,6 +537,10 @@ def test_routed_experiments_launch_the_block_kernel(cuda, name, kw):
     ((2, 64, 64, 48), 32, torch.bfloat16, 16),
     ((1, 16, 40, 37), 8, torch.float32, 8),
     ((1, 24, 30, 20), 16, torch.bfloat16, 10),
+    # conv outputs of 72 and 96 channels: two output-channel groups of
+    # 64 each; the least band height
+    ((1, 96, 20, 21), 72, torch.bfloat16, 5),
+    ((1, 96, 10, 19), 72, torch.float32, 5),
 ])
 def test_int8_kernel_matches_plain(cuda, shape, growth, dtype, rows):
     """The int8 kernel against its plain version on the card: the same
@@ -548,13 +552,102 @@ def test_int8_kernel_matches_plain(cuda, shape, growth, dtype, rows):
     with torch.inference_mode():
         got = fn(x, ws, bs, rows=rows)
         torch.cuda.synchronize()
-        assert fn.launches - before == ex_ops.INT8_LAUNCHES_PER_CALL
+        assert fn.launches - before == ex_ops.int8_launches(len(ws)) \
+            == ex_ops.INT8_LAUNCHES_PER_CALL
         ref = ex_ops.fused_dense_block_cf8_plain(x, ws, bs, rows=rows)
     assert got.shape == ref.shape and got.dtype == ref.dtype
     ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -23
     diff = (got.float() - ref.float()).abs()
     assert bool((diff <= ulp * ref.float().abs().clamp_min(1e-30)).all()) \
         or diff.max().item() == 0.0
+
+
+@pytest.mark.parametrize("n,c,growth,dtype", [
+    (5, 64, 32, torch.bfloat16), (4, 12, 6, torch.float32),
+    (5, 96, 72, torch.bfloat16)], ids=["flagship", "n4_c12_g6", "c96_g72"])
+def test_int8_prep_and_band_match_plain(cuda, n, c, growth, dtype):
+    """The weight-prep and banding launches against their plain versions
+    element for element: every conv's int8 weights, scales and biases;
+    the buffer's slice 0 and amax slice 0 (float bits), the other amax
+    slices zeroed."""
+    from super_resolution_tpu_torch.ops.dense_block import layout
+
+    gen = torch.Generator().manual_seed(8)
+    rows, (b, h, w) = 8, (2, 16, 21)
+    x = torch.randn(b, c, h, w, generator=gen).to(cuda, dtype)
+    ws, bs, cin = [], [], c
+    for k in range(n):
+        cout = c if k == n - 1 else growth
+        # even convs: HWIO views of OIHW weights, read through strides
+        w_ = (torch.randn(3, 3, cin, cout, generator=gen) if k % 2 else
+              torch.randn(cout, cin, 3, 3, generator=gen).permute(2, 3, 1, 0))
+        ws.append((w_ * 0.1).to(cuda, dtype))
+        bs.append((torch.randn(cout, generator=gen) * 0.1).to(cuda))
+        cin += growth
+    ws[1][..., 0] = 0                        # an all-zero row: scale 1e-12/127
+    lay = layout(c, growth, n, torch.bfloat16)
+    n_bb, band_rows = b * (h // rows), rows + 2 * n
+    plan = ex_ops.int8_scratch(lay, n_bb, band_rows)
+    counter = type("Counter", (), {"launches": 0})
+    with torch.inference_mode():
+        scratch = torch.full((plan.nbytes,), 0x5A, dtype=torch.uint8,
+                             device=cuda)
+        buf = torch.full((n_bb, band_rows, w, lay.c_total), float("nan"),
+                         dtype=dtype, device=cuda)
+        ex_ops.int8_prep(counter, ws, bs, lay, scratch, plan)
+        ex_ops.int8_band(counter, x, rows, lay, buf, scratch)
+        torch.cuda.synchronize()
+    assert counter.launches == 2
+    want = ex_ops.prep_weights_plain([w_.cpu() for w_ in ws],
+                                     [b_.cpu() for b_ in bs], lay)
+    raw = scratch.cpu()
+    for conv, (wq, sw, bias) in zip(plan.convs, want):
+        got_wq = raw[conv.wq_off:conv.wq_off + wq.numel()].view(torch.int8)
+        assert torch.equal(got_wq.reshape(wq.shape), wq)
+        got_sw = raw[conv.sw_off:conv.sw_off + 4 * sw.numel()] \
+            .view(torch.float32)
+        assert torch.equal(got_sw, sw)
+        got_b = raw[conv.bias_off:conv.bias_off + 4 * bias.numel()] \
+            .view(torch.float32)
+        assert torch.equal(got_b, bias)
+    want_buf, want_amax = ex_ops.band_plain(x.cpu(), rows, lay)
+    assert torch.equal(buf[..., :lay.cp].cpu(), want_buf)
+    amax = raw[:4 * plan.amax_words].view(torch.int32) \
+        .reshape(n, n_bb, band_rows)
+    assert torch.equal(amax[0].view(torch.float32), want_amax)
+    assert not amax[1:].any()
+
+
+@pytest.mark.parametrize("n,c,growth,shape,dtype", [
+    (1, 12, 0, (2, 12, 10, 13), torch.bfloat16),
+    (2, 16, 8, (1, 16, 12, 7), torch.float32),
+    (3, 8, 24, (1, 8, 18, 40), torch.bfloat16),
+], ids=["n1_w13", "n2_w7_fp32", "n3_g24"])
+def test_int8_any_conv_count_matches_plain(cuda, n, c, growth, shape,
+                                           dtype):
+    """Conv counts other than five, widths below and not a multiple of
+    the 16-column tile, on the card: n + 2 launches, the plain version's
+    values up to an ULP of x's dtype."""
+    gen = torch.Generator().manual_seed(9)
+    x = torch.randn(shape, generator=gen).to(cuda, dtype)
+    ws, bs, cin = [], [], c
+    for k in range(n):
+        cout = c if k == n - 1 else growth
+        ws.append((torch.randn(3, 3, cin, cout, generator=gen)
+                   * math.sqrt(2.0 / (9 * cin))).to(cuda, dtype))
+        bs.append((torch.randn(cout, generator=gen) * 0.1).to(cuda))
+        cin += growth
+    fn = ex_ops.fused_dense_block_cf8
+    rows = 5 if shape[2] % 6 else 6
+    before = fn.launches
+    with torch.inference_mode():
+        got = fn(x, ws, bs, rows=rows)
+        torch.cuda.synchronize()
+        assert fn.launches - before == ex_ops.int8_launches(n) == n + 2
+        ref = ex_ops.fused_dense_block_cf8_plain(x, ws, bs, rows=rows)
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -23
+    diff = (got.float() - ref.float()).abs()
+    assert bool((diff <= ulp * ref.float().abs()).all())
 
 
 def test_int8_kernel_depends_on_rows(cuda):

@@ -22,6 +22,12 @@ Tolerances:
   may contract the bf16 residual into an FMA, which the port rounds in
   two steps, so a y near a bf16 rounding boundary can differ by an
   ULP).
+- v8's CUDA launches, by their plain versions: the weight prep
+  (``prep_weights_plain``) equal to the JAX kernel's quantization in
+  every integer and scale; the fused amax (``fused_amax_plain``) equal
+  to the window amax of every conv; the banding (``band_plain``) equal
+  to the bands of x.  Exact: each is a max, a copy or the same f32
+  steps.
 """
 
 import numpy as np
@@ -172,7 +178,7 @@ def test_cpu_wrappers_count_no_launches():
     for f in fns:
         _port(f, x, ws, bs, rows=8)
     assert [f.launches for f in fns] == before
-    assert P.INT8_LAUNCHES_PER_CALL == 10
+    assert P.INT8_LAUNCHES_PER_CALL == 7          # n + 2 at n = 5
 
 
 @pytest.mark.parametrize("name", ["cf", "cf2", "cf3", "cf6", "cf8"])
@@ -187,4 +193,125 @@ def test_any_conv_count_and_width_matches_pallas(name):
         assert np.abs(got - ref).max() <= 1e-6 * np.abs(ref).max()
     else:
         np.testing.assert_allclose(got, ref, atol=2e-5, rtol=1e-4)
-    assert P.int8_launches(4) == 8
+    assert P.int8_launches(4) == 6
+
+
+def _jax_quantize(ws):
+    """The JAX kernel's weight quantization (experiments_dense_block.py,
+    fused_dense_block_cf8), jitted as it runs there: XLA folds its
+    ``/ 127.0`` into a multiplication, as the port does."""
+    import jax
+
+    @jax.jit
+    def quant(wk):
+        wp = J.pack_weights_v6(wk).astype(jnp.float32)     # (3F, 3C)
+        s = jnp.maximum(jnp.max(jnp.abs(wp), axis=1), 1e-12) / 127.0
+        return (jnp.clip(jnp.round(wp / s[:, None]), -127, 127)
+                .astype(jnp.int8), s)
+
+    return [tuple(np.asarray(a) for a in quant(jnp.asarray(w))) for w in ws]
+
+
+@pytest.mark.parametrize("n,c,g", [(5, 16, 8), (4, 12, 6), (1, 12, 0)],
+                         ids=["n5_c16_g8", "n4_c12_g6", "n1_c12"])
+def test_int8_prep_weights_plain_matches_jax(n, c, g):
+    """The weight-prep launch's plain version against the JAX kernel's
+    quantization: at every real (dy, dx, f, c) the same integer, every
+    row the same scale; padded output rows zero with the scale
+    1e-12/127, padded input columns zero, biases padded with zeros.  One
+    output channel of conv 2 is all zero (the JAX scale 1e-12/127)."""
+    from super_resolution_tpu_torch.ops.dense_block import layout
+
+    _, ws, bs = _inputs(9, (1, c, 8, 8), g, scale=0.1, n=n)
+    if n > 1:
+        ws[1][..., 0] = 0.0
+    ref = _jax_quantize(ws)
+    lay = layout(c, g, n, torch.bfloat16)
+    got = P.prep_weights_plain([torch.from_numpy(w) for w in ws],
+                               [torch.from_numpy(b) for b in bs], lay)
+    zero_scale = np.float32(1e-12) * np.float32(P.RECIP127)
+    for k, ((wq_ref, s_ref), (wq, sw, bias)) in enumerate(zip(ref, got)):
+        cin, cout = ws[k].shape[2], ws[k].shape[3]
+        cout_p = c if k == n - 1 else lay.gp
+        cpad = -(-lay.offset(k + 1) // 32) * 32
+        assert wq.dtype == torch.int8
+        assert tuple(wq.shape) == (9, cout_p, cpad)
+        pos = lay.positions(cin)
+        w5 = wq.numpy().reshape(3, 3, cout_p, cpad)
+        # JAX: row dx·F + f, column dy·C + c
+        real = wq_ref.reshape(3, cout, 3, cin).transpose(2, 0, 1, 3)
+        np.testing.assert_array_equal(w5[:, :, :cout][..., pos], real)
+        others = np.setdiff1d(np.arange(cpad), pos)
+        assert not w5[..., others].any() and not w5[:, :, cout:].any()
+        sw = sw.numpy().reshape(3, cout_p)
+        np.testing.assert_array_equal(sw[:, :cout], s_ref.reshape(3, cout))
+        assert (sw[:, cout:] == zero_scale).all()
+        np.testing.assert_array_equal(bias.numpy()[:cout], bs[k])
+        assert not bias.numpy()[cout:].any()
+    if n > 1:
+        assert (got[1][1].numpy().reshape(3, -1)[:, 0] == zero_scale).all()
+        assert not got[1][0].numpy().reshape(9, lay.gp, -1)[:, 0].any()
+
+
+@pytest.mark.parametrize("n,c,g,dtype", [
+    (5, 16, 8, "float32"), (4, 12, 6, "float32"), (4, 12, 6, "bfloat16")],
+    ids=["n5_c16_g8", "n4_c12_g6", "n4_c12_g6_bf16"])
+def test_int8_fused_amax_equals_window_amax(n, c, g, dtype):
+    """Each conv's amax from the row maxima the epilogues gather (slices
+    0..k over band rows [k, band_rows - k)) equals the amax of its input
+    window as the JAX kernel takes it, for every k, in two bands; and
+    the banding's plain version gives the bands of x and slice 0's row
+    maxima."""
+    from super_resolution_tpu_torch.ops.dense_block import layout
+
+    rows = 8
+    x, ws, bs = _inputs(10, (2, c, 2 * rows, 20), g, scale=0.1, n=n)
+    x[:, :, 1:3, 4:9] *= 5.0                # one band's scale differs
+    tdt = getattr(torch, dtype)
+    xt = torch.from_numpy(x).to(tdt)
+    rec = {}
+    P.fused_dense_block_cf8_plain(xt, [torch.from_numpy(w).to(tdt)
+                                       for w in ws],
+                                  [torch.from_numpy(b) for b in bs],
+                                  rows=rows, record=rec)
+    row_max = rec["row_max"]
+    assert tuple(row_max.shape) == (n, 2 * 2, rows + 2 * n)
+    for k in range(n):
+        fused = P.fused_amax_plain(row_max, k)
+        assert torch.equal(fused, rec["window_amax"][k]), k
+    assert len(set(rec["window_amax"][0].tolist())) > 1
+    lay = layout(c, g, n, torch.bfloat16)
+    buf, amax0 = P.band_plain(xt, rows, lay)
+    assert torch.equal(amax0, row_max[0])
+    bands = P._bands(xt, rows, n).permute(0, 1, 3, 4, 2)
+    assert torch.equal(buf[..., :c], bands.reshape(buf.shape[:3] + (c,)))
+    assert not buf[..., c:].float().any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_kernel_rounding_equals_clip_rint(dtype):
+    """The conv kernel's quantization, emulated in float32: rint as the
+    low byte of fl(fl(v·inv) + 1.5·2^23), with no clip, equals
+    clip(rint(v·inv), -127, 127) for every value of a window (|v| <=
+    amax), at amax far below 1e-6, at ±amax itself and at half-integer
+    products (round half to even)."""
+    rng = np.random.default_rng(11)
+    amax = np.concatenate([rng.uniform(1e-9, 64.0, 400),
+                           [1e-9, 5e-7, 1e-6, 1.0, 3.0, 127.0]])
+    amax = torch.from_numpy(amax.astype(np.float32)).to(
+        getattr(torch, dtype)).float().numpy()
+    recip = np.float32(P.RECIP127)
+    for a in amax:
+        s_x = np.float32(max(a, np.float32(1e-6))) * recip
+        inv = np.float32(1.0) / s_x
+        v = rng.uniform(-a, a, 512).astype(np.float32)
+        v = np.concatenate([v, [a, -a, 0.0],
+                            (np.arange(-4, 5) + 0.5) * s_x]).astype(np.float32)
+        v = torch.from_numpy(v).to(getattr(torch, dtype)).float().numpy()
+        v = v[np.abs(v) <= a]
+        prod = (v * inv).astype(np.float32)
+        want = np.clip(np.rint(prod), -127, 127).astype(np.int8)
+        bits = (prod + np.float32(12582912.0)).astype(np.float32) \
+            .view(np.uint32)
+        got = (bits & 0xFF).astype(np.uint8).view(np.int8)
+        np.testing.assert_array_equal(got, want)
