@@ -111,8 +111,27 @@ and prints no result line:
    every variant, no ``FAILED``, and per model forward 345 dense-block
    launches on each variant's own counter (+4 tail launches under
    ``ktail``), none under ``lax``.
-14. the ``kernels`` JSON line, the card's name and power limit as
-   nvidia-smi prints them, then the ``ok`` JSON line last.
+14. eval (right after train): ``cli eval --json`` of the full-width
+   generator (the serve phase's seeded weights, bf16, ``auto``) over
+   three synthetic HR frames (512 x 512, 480 x 640, 404 x 724: LR sides
+   101 and 181 not multiples of 8) at tile 96: the four keys, one
+   dense-block launch per conv of every dense block of every tile batch,
+   the same eval through the plain dense block within 0.05 dB and 1e-3
+   SSIM, ``ssim`` / ``psnr01`` on CUDA tensors against CPU tensors
+   within 1e-5 with cuDNN's TF32 default on, ``--self_ensemble`` and a
+   paired ``--lr_dir`` once each; seconds per image and output MP/s.
+15. export: ``cli export`` of the train phase's checkpoint directory with
+   the default halo sweep (frame 192, tile_w 64, halos 2,4,6,8; fp32
+   lax, TF32 off, on the card) and ``--val_dir`` the eval frames: the
+   step-6 EMA gated out, the sidecar's sweep rows and val contract,
+   ``cli upscale --halo auto`` reading the stamp, the release and the
+   directory giving the same bytes in ``cli upscale``, ``--ema`` writing
+   {params, params_ema}, ``cli interp`` of the release and the serve
+   weights at alpha 0, 1 (bit for bit) and 0.5 (1e-6); the sweep's wall
+   time.
+16. the ``kernels`` JSON line, the card's name and power limit as
+   nvidia-smi prints them, then the ``ok`` JSON line last; the total
+   wall time on stderr.
 
 It needs a CUDA card and the repository around it; without either it
 exits nonzero before printing any result.
@@ -1041,7 +1060,10 @@ def cli_train_recorded(argv):
     return rc, records, {n: f.launches for n, f in counters.items()}
 
 
-def train_phase():
+def train_phase(ck_dir=None):
+    """``ck_dir``: where ``cli train`` writes its checkpoint directory, so
+    that later phases can read it (default: inside the phase's own
+    temporary directory)."""
     import dataclasses
     import importlib
     import statistics
@@ -1097,7 +1119,7 @@ def train_phase():
                                       state_b.g.parameters()))
 
     with tempfile.TemporaryDirectory() as tmp:
-        ck, log = os.path.join(tmp, "ck"), os.path.join(tmp, "log")
+        ck, log = ck_dir or os.path.join(tmp, "ck"), os.path.join(tmp, "log")
         rc, records, totals = cli_train_recorded(
             ["train", "--preset", "train_gan_dfm",
              "--dataset_dir", os.path.join(tmp, "no_dataset"),
@@ -1281,6 +1303,329 @@ def train_phase():
           f"a GAN step {res['peak_memory_gb']:.3f} GB", flush=True)
     print("[train] " + json.dumps(res), flush=True)
     return res
+
+
+# [eval]: cli eval through the dense-block kernel against the same eval
+# through the plain dense block on the card, per metric (bf16, 23
+# blocks).  Rounding flips of the bf16 convs move the SR image by a few
+# hundredths of an LSB on average (serve phase), which moves a PSNR of
+# order 10-30 dB by far less than 0.05 dB and an SSIM by far less than
+# 1e-3; a fault at a tile or a channel moves whole regions.
+EVAL_PLAIN_PSNR_DB = 0.05
+EVAL_PLAIN_SSIM = 1e-3
+# the metrics on CUDA tensors against the same call on CPU tensors: both
+# float32 without TF32 (E[x^2] - mu^2 under TF32 moves SSIM by ~1e-3)
+EVAL_METRIC_DEVICE_TOL = 1e-5
+# HR frames of the eval phase (H, W): one square, one non-square, one
+# whose LR sides (101 x 181) are not multiples of 8
+EVAL_FRAMES = {"a": (512, 512), "b": (480, 640), "c": (404, 724)}
+EVAL_TILE, EVAL_TILE_BATCH = 96, 2
+
+
+def cli_said(argv):
+    """(rc, stdout) of ``cli.main(argv)``, the output echoed."""
+    import contextlib
+    import io
+
+    from super_resolution_tpu_torch import cli
+
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        rc = cli.main(argv)
+    print(said.getvalue(), end="", flush=True)
+    return rc, said.getvalue()
+
+
+def cli_json(argv):
+    """(rc, the last stdout line of ``cli.main(argv)`` parsed as JSON)."""
+    rc, out = cli_said(argv)
+    return rc, json.loads(out.strip().splitlines()[-1])
+
+
+def eval_phase(sd, work, smi):
+    """``cli eval`` of the full-width generator (the serve phase's seeded
+    weights ``sd``, bf16, ``auto``) over three synthetic HR frames written
+    into ``work/val`` (kept for the export phase), and over a paired LR
+    directory; see the module docstring."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from super_resolution_tpu_torch.config import GeneratorConfig, TrainConfig
+    from super_resolution_tpu_torch.metrics import eval_metrics
+    from super_resolution_tpu_torch.ops.dense_block import (
+        LAUNCHES_PER_BLOCK,
+        dense_block,
+    )
+    from super_resolution_tpu_torch.parallel.tiling import plan_tiles
+    from super_resolution_tpu_torch.train.evaluate import evaluate_directory
+    from super_resolution_tpu_torch.train.steps import make_infer_fn
+
+    gcfg = GeneratorConfig()
+    per_forward = gcfg.n_blocks * gcfg.n_dense * LAUNCHES_PER_BLOCK
+    rng = np.random.default_rng(3)
+
+    def frame(h, w):
+        yy, xx = np.mgrid[0:h, 0:w]
+        rgb = np.stack([xx * 255 // w, yy * 255 // h,
+                        128 + 90 * np.sin(xx / 7.0) * np.cos(yy / 11.0)], -1)
+        return np.clip(rgb + rng.integers(-12, 13, rgb.shape), 0,
+                       255).astype(np.uint8)
+
+    val, pdir = os.path.join(work, "val"), os.path.join(work, "paired")
+    pth = os.path.join(work, "g_serve.pth")
+    torch.save(sd, pth)
+    os.makedirs(val)
+    os.makedirs(os.path.join(pdir, "hr"))
+    os.makedirs(os.path.join(pdir, "lr"))
+    batches = 0
+    for k, (h, w) in EVAL_FRAMES.items():
+        hr = frame(h, w)
+        Image.fromarray(hr).save(os.path.join(val, f"{k}.png"))
+        _, oys, oxs = plan_tiles(h // 4, w // 4, EVAL_TILE, 8)
+        batches += math.ceil(len(oys) * len(oxs) / EVAL_TILE_BATCH)
+    # the paired frame: b's HR and a PIL-bicubic LR of it
+    hr_b = frame(*EVAL_FRAMES["b"])
+    Image.fromarray(hr_b).save(os.path.join(pdir, "hr", "b.png"))
+    Image.fromarray(hr_b).resize((160, 120), Image.BICUBIC).save(
+        os.path.join(pdir, "lr", "b.png"))
+
+    argv = ["eval", "--dataset_dir", val, "--checkpoint", pth, "--json",
+            "--tile", str(EVAL_TILE), "--tile_batch", str(EVAL_TILE_BATCH)]
+    runs = []
+    for _ in range(2):          # the second run is the warm one timed
+        dense_block.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc, got = cli_json(argv)
+        runs.append(time.perf_counter() - t0)
+        launches = dense_block.launches
+        if rc != 0:
+            fail(f"cli eval returned {rc}")
+    if set(got) != {"psnr_rgb", "psnr_y", "ssim", "n_images"} \
+            or got["n_images"] != len(EVAL_FRAMES) \
+            or not all(math.isfinite(v) for v in got.values()):
+        fail(f"cli eval printed {got}")
+    want = batches * per_forward
+    print(f"[eval] dense-block launches in one cli eval: {launches} (want "
+          f"{batches} tile batches x {per_forward} = {want})", flush=True)
+    if launches != want:
+        fail("cli eval did not run every tile batch through the "
+             "dense-block kernel")
+
+    with PlainKernels():
+        rc, plain = cli_json(argv)
+    if rc != 0:
+        fail(f"cli eval through the plain dense block returned {rc}")
+    delta = {k: abs(got[k] - plain[k]) for k in ("psnr_rgb", "psnr_y",
+                                                "ssim")}
+    print(f"[eval] kernel vs plain dense block: |delta| {json.dumps(delta)}"
+          f" (limits {EVAL_PLAIN_PSNR_DB} dB, SSIM {EVAL_PLAIN_SSIM})",
+          flush=True)
+    if delta["psnr_rgb"] > EVAL_PLAIN_PSNR_DB or \
+            delta["psnr_y"] > EVAL_PLAIN_PSNR_DB or \
+            delta["ssim"] > EVAL_PLAIN_SSIM:
+        fail("cli eval through the kernel differs from the plain block")
+
+    # the metrics on the card with cuDNN's TF32 default left on: the
+    # SSIM filter must run without it
+    a = torch.from_numpy(hr_b.astype(np.float32) / 255.0)
+    b = torch.clamp(a + 0.03 * torch.randn(
+        a.shape, generator=torch.Generator().manual_seed(4)), 0.0, 1.0)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        on_card = eval_metrics(a.cuda(), b.cuda())
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    on_cpu = eval_metrics(a, b)
+    dev_err = {k: abs(float(on_card[k]) - float(v))
+               for k, v in on_cpu.items()}
+    print(f"[eval] metrics on CUDA vs CPU tensors: |delta| "
+          f"{json.dumps(dev_err)} (limit {EVAL_METRIC_DEVICE_TOL})",
+          flush=True)
+    if max(dev_err.values()) > EVAL_METRIC_DEVICE_TOL:
+        fail("ssim / psnr01 on the card differ from the CPU")
+
+    dense_block.launches = 0
+    rc, ens = cli_json(argv + ["--self_ensemble", "--max_images", "1"])
+    _, oys, oxs = plan_tiles(EVAL_FRAMES["a"][0] // 4,
+                             EVAL_FRAMES["a"][1] // 4, EVAL_TILE, 8)
+    want_ens = 8 * math.ceil(len(oys) * len(oxs) / EVAL_TILE_BATCH) \
+        * per_forward
+    if rc != 0 or ens["n_images"] != 1 or dense_block.launches != want_ens \
+            or not all(math.isfinite(v) for v in ens.values()):
+        fail(f"cli eval --self_ensemble: rc {rc}, {ens}, launches "
+             f"{dense_block.launches} (want {want_ens})")
+    rc, paired = cli_json(["eval", "--dataset_dir",
+                              os.path.join(pdir, "hr"), "--lr_dir",
+                              os.path.join(pdir, "lr"), "--checkpoint", pth,
+                              "--json"])
+    if rc != 0 or paired["n_images"] != 1 or \
+            not all(math.isfinite(v) for v in paired.values()):
+        fail(f"cli eval --lr_dir: rc {rc}, {paired}")
+
+    # where the call's time goes: the device's share, and the eval
+    # itself with the generator built once (as the in-loop eval runs)
+    profile_device(lambda: cli_said(argv), runs[1] * 1e3, "eval-profile")
+    cfg = TrainConfig(generator=gcfg)
+    infer = make_infer_fn(cfg, sd, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = evaluate_directory(cfg, None, val, tile=EVAL_TILE, halo=8,
+                               tile_batch=EVAL_TILE_BATCH, infer_fn=infer)
+    eval_only_s = time.perf_counter() - t0
+    if again != got:
+        fail(f"evaluate_directory with a built forward gave {again}, "
+             f"cli eval {got}")
+
+    out_mp = sum(h * w for h, w in EVAL_FRAMES.values()) / 1e6
+    res = dict(metrics=got, plain=plain, kernel_vs_plain=delta,
+               metrics_cuda_vs_cpu=dev_err, self_ensemble=ens, paired=paired,
+               launches=launches, tile_batches=batches,
+               first_run_s=runs[0], s=runs[1],
+               s_per_image=runs[1] / len(EVAL_FRAMES),
+               output_mp_per_s=out_mp / runs[1],
+               built_forward_s_per_image=eval_only_s / len(EVAL_FRAMES))
+    print(f"[eval] {smi}: cli eval of {len(EVAL_FRAMES)} images "
+          f"({out_mp:.4f} output MP; 23 blocks, bf16, auto, tile "
+          f"{EVAL_TILE}, halo 8, tile batch {EVAL_TILE_BATCH}): "
+          f"{res['s_per_image']:.4f} s per image, "
+          f"{res['output_mp_per_s']:.4f} output MP/s (warm run; the first "
+          f"run {runs[0]:.3f} s); with the generator built once (in-loop "
+          f"eval) {res['built_forward_s_per_image']:.4f} s per image",
+          flush=True)
+    print("[eval] " + json.dumps(res), flush=True)
+    return res
+
+
+def export_phase(ck, work, serve_sd, smi):
+    """``cli export`` of the train phase's checkpoint directory ``ck``
+    with the default halo sweep and ``--val_dir`` (the eval phase's
+    images), the stamp read by ``cli upscale --halo auto``, the release
+    against the directory in ``cli upscale``, ``--ema``, and ``cli
+    interp`` of the release with the serve phase's weights."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    import super_resolution_tpu_torch.halo_sweep as hs
+    from super_resolution_tpu_torch.checkpoint import restore_generator_trees
+    from super_resolution_tpu_torch.import_torch import (
+        import_generator,
+        load_pth,
+    )
+
+    rel = os.path.join(work, "release.pth")
+    sweep_s = []
+    orig_sweep = hs.sweep_admissible_halo
+
+    def timed_sweep(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig_sweep(*a, **kw)
+        torch.cuda.synchronize()
+        sweep_s.append(time.perf_counter() - t0)
+        return out
+
+    hs.sweep_admissible_halo = timed_sweep
+    try:
+        t0 = time.perf_counter()
+        rc, said = cli_said(
+            ["export", "--checkpoint", ck, "--out", rel, "--val_dir",
+             os.path.join(work, "val")])
+        export_s = time.perf_counter() - t0
+    finally:
+        hs.sweep_admissible_halo = orig_sweep
+    if rc != 0 or "EMA maturity horizon" not in said:
+        fail(f"cli export returned {rc} or did not gate the step-6 EMA")
+    meta = hs.read_halo_meta(rel)
+    row_keys = {"halo", "psnr_vs_whole_db", "max_err01", "mean_err01",
+                "uint8_lsb_max"}
+    if meta is None or meta.get("method") != "structured_probe_sweep" \
+            or [r["halo"] for r in meta["sweep"]] != [2, 4, 6, 8] \
+            or any(set(r) != row_keys for r in meta["sweep"]) \
+            or (meta["frame"], meta["tile_w"]) != (192, 64) \
+            or meta["weights"] != "params":
+        fail(f"the release sidecar is wrong: {meta}")
+    halo = meta["admissible_halo"]
+    vc = meta.get("val_contract")
+    if halo is not None and (vc is None or vc["n_images"] != 3 or
+                             not math.isfinite(vc["delta_db"])):
+        fail(f"the sidecar's val contract is wrong: {vc}")
+    print(f"[export] {smi}: halo sweep (fp32 lax, TF32 off, frame 192, "
+          f"tile_w 64, halos 2,4,6,8, 23 blocks) {sweep_s[0]:.3f} s; cli "
+          f"export with it and the val contract {export_s:.3f} s; "
+          f"admissible_halo {halo}; sweep "
+          f"{json.dumps([(r['halo'], r['psnr_vs_whole_db']) for r in meta['sweep']])};"
+          f" val contract {json.dumps(vc)}", flush=True)
+
+    # the release and the checkpoint directory give the same bytes
+    rng = np.random.default_rng(5)
+    src = os.path.join(work, "lr_export.png")
+    Image.fromarray(rng.integers(0, 256, (150, 260, 3), dtype=np.uint8)) \
+        .save(src)
+    outs = {}
+    for name, ckpt, halo_flag in (("release", rel, "auto"),
+                                  ("dir", ck, str(8 if halo is None
+                                                  else halo))):
+        outs[name] = os.path.join(work, f"sr_{name}.png")
+        rc, said = cli_said(
+            ["upscale", "--image", src, "--checkpoint", ckpt, "--out",
+             outs[name], "--tile", "96", "--halo", halo_flag])
+        if rc != 0:
+            fail(f"cli upscale from the {name} returned {rc}")
+        if name == "release":
+            line = (f"halo={halo} from release metadata" if halo is not None
+                    else "found NO admissible halo")
+            if line not in said:
+                fail(f"cli upscale --halo auto did not read the stamp "
+                     f"({line!r})")
+    same = np.array_equal(np.asarray(Image.open(outs["release"])),
+                          np.asarray(Image.open(outs["dir"])))
+    print(f"[export] cli upscale from the release vs the checkpoint "
+          f"directory: same bytes {same}", flush=True)
+    if not same:
+        fail("the release .pth upscales differently from its checkpoint")
+
+    rel_ema = os.path.join(work, "release_ema.pth")
+    rc, _ = cli_said(["export", "--checkpoint", ck, "--out",
+                               rel_ema, "--ema", "--no-halo_sweep"])
+    tree = torch.load(rel_ema, weights_only=True)
+    _, g_ema, _ = restore_generator_trees(ck)
+    if rc != 0 or set(tree) != {"params", "params_ema"} or not torch.equal(
+            tree["params_ema"]["conv_first.weight"],
+            g_ema["conv_first.weight"]):
+        fail("cli export --ema did not write {params, params_ema}")
+
+    serve_pth = os.path.join(work, "g_serve.pth")
+    psnr_side, _ = import_generator(load_pth(rel))
+    gan_side, _ = import_generator(serve_sd)
+    interp = {}
+    for alpha in (0.0, 1.0, 0.5):
+        out = os.path.join(work, f"interp_{alpha}.pth")
+        rc, _ = cli_said(["interp", "--psnr_ckpt", rel,
+                                   "--gan_ckpt", serve_pth, "--alpha",
+                                   str(alpha), "--out", out])
+        got, _ = import_generator(load_pth(out))
+        if rc != 0:
+            fail(f"cli interp alpha {alpha} returned {rc}")
+        if alpha == 0.5:
+            interp[alpha] = max(float((got[k] - 0.5 * (psnr_side[k]
+                                                       + gan_side[k]))
+                                      .abs().max()) for k in got)
+            ok = interp[alpha] <= 1e-6
+        else:
+            side = psnr_side if alpha == 0.0 else gan_side
+            ok = interp[alpha] = all(torch.equal(got[k], side[k])
+                                     for k in got)
+        if not ok:
+            fail(f"cli interp alpha {alpha}: {interp[alpha]}")
+    print(f"[export] cli interp of the release and the serve weights: alpha "
+          f"0 equals the PSNR side {interp[0.0]}, alpha 1 the GAN side "
+          f"{interp[1.0]}, alpha 0.5 max |err| from the mean "
+          f"{interp[0.5]:.3g} (limit 1e-6)", flush=True)
+    return dict(sweep_s=sweep_s[0], export_s=export_s, meta=meta)
 
 
 def conv_bound(shape, cout, dtype_name, out_elt=None):
@@ -2233,6 +2578,7 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device; this smoke test runs "
               "only on the card", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2268,7 +2614,14 @@ def main() -> int:
     kern_bwd = bwd_kernel_phase()
     model_phase()
     serve, frame = serve_phase()
-    train = train_phase()
+    with tempfile.TemporaryDirectory() as work:
+        ck = os.path.join(work, "ck")
+        train = train_phase(ck)
+        t_new = time.perf_counter()
+        evals = eval_phase(frame["sd"], work, smi)
+        export_phase(ck, work, frame["sd"], smi)
+        print(f"[eval+export] the two phases took "
+              f"{time.perf_counter() - t_new:.1f} s", flush=True)
     conv = conv3x3_phase()
     fused = fused_phase()
     impls = impls_phase(frame)
@@ -2290,10 +2643,12 @@ def main() -> int:
         "source": "super_resolution_tpu_torch/csrc/dense_block.cu",
         "replaces": REPLACES,
         # the user's entry points, each counted from 0: cli upscale and
-        # cli serve --once, then cli train
-        "launches": serve_launches + train["fwd_launches"],
+        # cli serve --once, then cli train, then cli eval
+        "launches": serve_launches + train["fwd_launches"]
+        + evals["launches"],
         "launches_serve_path": serve_launches,
         "launches_train_path": train["fwd_launches"],
+        "launches_eval_path": evals["launches"],
         "max_abs_err": flag["max_abs_err"],
         "ms": flag["kernel_ms"],
         "plain_ms": flag["plain_ms"],
@@ -2405,6 +2760,8 @@ def main() -> int:
         "kernels_device_ms_rows32":
             int8["flagship_rows32"]["kernels_device_ms"],
     }]}))
+    print(f"[time] chip_smoke took {time.perf_counter() - t_start:.1f} s "
+          f"from the card check to the result", file=sys.stderr, flush=True)
     print(smi)                       # card name, power limit
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -149,3 +149,18 @@ def restore_generator_params(ckpt_dir: str, step: Optional[int] = None,
                 return g_params, step
         return g_ema, step
     return g_params, step
+
+
+def net_interp(params_psnr: Dict[str, torch.Tensor],
+               params_gan: Dict[str, torch.Tensor],
+               alpha: float) -> Dict[str, torch.Tensor]:
+    """ESRGAN network interpolation (paper §3.4): θ = α·θ_GAN +
+    (1−α)·θ_PSNR, tensor by tensor over two state dicts with the same
+    keys."""
+    if not 0.0 <= alpha <= 1.0:
+        raise ValueError(f"alpha must be in [0,1], got {alpha}")
+    if set(params_psnr) != set(params_gan):
+        raise ValueError("net_interp: the state dicts have other keys: "
+                         f"{sorted(set(params_psnr) ^ set(params_gan))[:8]}")
+    return {k: (1.0 - alpha) * v + alpha * params_gan[k]
+            for k, v in params_psnr.items()}

@@ -1,10 +1,17 @@
-"""CLI of the port: the ``train``, ``upscale`` and ``serve`` subcommands
-of the JAX package's CLI, with the same flags, running on the card.
+"""CLI of the port: the ``train``, ``eval``, ``upscale``, ``serve``,
+``export`` and ``interp`` subcommands of the JAX package's CLI, with the
+same flags, running on the card.
 
     python -m super_resolution_tpu_torch.cli train --dataset_dir data/train \
-        --preset train_gan_dfm --checkpoint_dir ck/
+        --preset train_gan_dfm --checkpoint_dir ck/ --eval_dir data/val
+    python -m super_resolution_tpu_torch.cli eval --dataset_dir data/val \
+        --checkpoint ck/ --json
+    python -m super_resolution_tpu_torch.cli export --checkpoint ck/ \
+        --out release.pth --val_dir data/val
+    python -m super_resolution_tpu_torch.cli interp --psnr_ckpt psnr.pth \
+        --gan_ckpt gan.pth --alpha 0.8 --out blend.pth
     python -m super_resolution_tpu_torch.cli upscale --image frame.png \
-        --checkpoint gen.pth --out sr.png
+        --checkpoint release.pth --out sr.png
     python -m super_resolution_tpu_torch.cli serve --checkpoint gen.pth \
         --watch in/ --out sr/
 
@@ -12,24 +19,28 @@ of the JAX package's CLI, with the same flags, running on the card.
 ``cuda`` on a machine without a card raises, and ``--device cpu`` runs
 every kernel's plain version on the CPU.  Checkpoints are torch ``.pth``
 files in any of the three naming families, or a checkpoint directory
-written by ``train``; orbax directories are the JAX package's format and
-are refused.  ``--data_parallel`` above 1, ``--multihost``,
-``--loader grain``, ``--profile_dir`` and ``--eval_dir`` are accepted by
-the parser and raise: they are not ported yet (ROADMAP.md).
+written by ``train`` (EMA maturity-gated); orbax directories are the JAX
+package's format and are refused.  ``--data_parallel`` above 1,
+``--multihost``, ``--loader grain`` and ``--profile_dir`` are accepted
+by the parser and raise: they are not ported yet (ROADMAP.md).
 ``--conv_impl`` picks the conv path by the JAX package's names (``auto``
 = ``pallas_cf``, ``pallas_cf_tail``, ``pallas``, ``pallas_fused``, and
-``lax``: cuDNN, no kernel of the port) for ``upscale``, ``serve`` and
-``train``; a checkpoint sets the architecture, never the impl.  Default
-tile geometry: square 384, no height bucket, no alignment under every
-impl: the port's kernels take every tile shape, so the JAX package's
-(8, 128) clamp for its TPU kernels' bands is not carried over (the H100
-geometry sweep is a ROADMAP item).
+``lax``: cuDNN, no kernel of the port) for ``upscale``, ``serve``,
+``eval`` and ``train``; a checkpoint sets the architecture, never the
+impl.  Default tile geometry: square 384, no height bucket, no alignment
+under every impl: the port's kernels take every tile shape, so the JAX
+package's (8, 128) clamp for its TPU kernels' bands is not carried over
+(the H100 geometry sweep is a ROADMAP item).  ``export``'s halo sweep
+runs an fp32 ``lax`` forward (cuDNN, TF32 off) on ``--device``, where
+the JAX package forces its CPU backend: both keep kernel and bf16
+rounding out of the measurement.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 import time
@@ -110,6 +121,21 @@ def _build_cfg(args):
     )
 
 
+def _train_dir(path: str) -> bool:
+    """Whether ``path`` is a checkpoint directory written by ``train``;
+    any other directory is refused: orbax is the JAX package's format."""
+    if not os.path.isdir(path):
+        return False
+    from super_resolution_tpu_torch.checkpoint import latest_step
+
+    if latest_step(path) is not None:
+        return True
+    raise SystemExit(
+        f"{path!r} is a directory: orbax checkpoints are the JAX "
+        f"package's format; export one to .pth with "
+        f"`python -m super_resolution_tpu.cli export` first")
+
+
 def _load_generator(args, cfg):
     """(port state dict, cfg with the checkpoint's architecture)."""
     from super_resolution_tpu_torch.import_torch import (
@@ -118,25 +144,18 @@ def _load_generator(args, cfg):
     )
 
     path = args.checkpoint
-    if os.path.isdir(path):
+    if _train_dir(path):
         from super_resolution_tpu_torch.checkpoint import (
-            latest_step,
             restore_generator_params,
         )
 
-        if latest_step(path) is not None:      # written by `train`
-            sd, _ = restore_generator_params(path,
-                                             ema_decay=cfg.ema_decay)
-            sd, gen_cfg = import_generator(sd)
-            gen_cfg = dataclasses.replace(
-                gen_cfg, conv_impl=cfg.generator.conv_impl,
-                tail_up=cfg.generator.tail_up,
-                lrelu_slope=cfg.generator.lrelu_slope)
-            return sd, dataclasses.replace(cfg, generator=gen_cfg)
-        raise SystemExit(
-            f"{path!r} is a directory: orbax checkpoints are the JAX "
-            f"package's format; export one to .pth with "
-            f"`python -m super_resolution_tpu.cli export` first")
+        sd, _ = restore_generator_params(path, ema_decay=cfg.ema_decay)
+        sd, gen_cfg = import_generator(sd)
+        gen_cfg = dataclasses.replace(
+            gen_cfg, conv_impl=cfg.generator.conv_impl,
+            tail_up=cfg.generator.tail_up,
+            lrelu_slope=cfg.generator.lrelu_slope)
+        return sd, dataclasses.replace(cfg, generator=gen_cfg)
     if not os.path.isfile(path):
         raise SystemExit(f"checkpoint not found: {path!r} (expected a "
                          f"torch .pth file)")
@@ -148,6 +167,173 @@ def _load_generator(args, cfg):
                                   conv_impl=cfg.generator.conv_impl,
                                   tail_up=cfg.generator.tail_up)
     return sd, dataclasses.replace(cfg, generator=gen_cfg)
+
+
+def _export(args, cfg) -> int:
+    """``cli export``: the release ``.pth`` (EMA maturity-gated), then the
+    halo sweep or stamp, the val contract and the sidecar."""
+    from super_resolution_tpu_torch.device import resolve_device
+    from super_resolution_tpu_torch.import_torch import (
+        export_generator_release,
+        import_generator,
+        load_pth,
+        save_pth,
+    )
+
+    sweep = args.halo_sweep and args.stamp_halo is None
+    # the forwards' device; a missing card is refused before anything
+    # is written
+    device = resolve_device(args.device) if sweep or args.val_dir else None
+    if os.path.isfile(args.checkpoint):    # .pth → re-wrap
+        g_sd, gcfg = import_generator(load_pth(args.checkpoint))
+        g_ema = None
+        if args.ema is not None:
+            # the import already collapsed the file to ONE tree
+            # (params_ema preferred when present): there is no second
+            # tree to force in or strip
+            print("[cli] warning: --ema/--no-ema has no effect on "
+                  "a .pth input — load_pth already selected "
+                  "params_ema when the file carries one, and the "
+                  "re-wrapped release has a single tree")
+    elif _train_dir(args.checkpoint):
+        from super_resolution_tpu_torch.checkpoint import (
+            read_ema_provenance,
+            restore_generator_trees,
+        )
+        from super_resolution_tpu_torch.config import ema_maturity_steps
+
+        g_sd, g_ema, step = restore_generator_trees(args.checkpoint)
+        g_sd, gcfg = import_generator(g_sd)
+        if g_ema is not None and args.ema is not True:
+            need = ema_maturity_steps(cfg.ema_decay)
+            prov = read_ema_provenance(args.checkpoint) or {}
+            if args.ema is False:
+                g_ema = None
+            elif step < need and not prov.get("warm_start"):
+                # an immature from-scratch EMA is the run's worst
+                # weights, and every importer prefers params_ema; a
+                # warm-started run's EMA was seeded from the warm-start
+                # weights and is release-grade at any step
+                print(f"[cli] warning: step {step} is inside the "
+                      f"EMA maturity horizon ({need} steps at "
+                      f"decay {cfg.ema_decay}) with no warm-start "
+                      f"provenance — params_ema would be dominated "
+                      f"by early-training weights, so the release "
+                      f"carries raw params only (--ema forces the "
+                      f"EMA tree in)")
+                g_ema = None
+        if g_ema is not None:
+            g_ema, _ = import_generator(g_ema)
+        print(f"[cli] exporting step-{step} checkpoint"
+              + (" (with params_ema)" if g_ema is not None else ""))
+    else:
+        raise SystemExit(f"checkpoint not found: {args.checkpoint!r}")
+    save_pth(export_generator_release(g_sd, gcfg, g_ema, style=args.style),
+             args.out)
+    print(f"[cli] wrote {args.out}")
+    if args.stamp_halo is None and not args.halo_sweep:
+        return 0
+
+    from super_resolution_tpu_torch.halo_sweep import (
+        sweep_admissible_halo,
+        val_dir_contract,
+        write_halo_meta,
+    )
+    from super_resolution_tpu_torch.train.steps import make_infer_fn
+
+    infer = None
+    if device is not None:
+        # an fp32 lax forward (the model runs inside device.no_tf32) of
+        # the weights inference will load: importers prefer params_ema
+        sweep_cfg = dataclasses.replace(
+            cfg, compute_dtype="float32",
+            generator=dataclasses.replace(gcfg, conv_impl="lax"))
+        infer = make_infer_fn(sweep_cfg, g_sd if g_ema is None else g_ema,
+                              device)
+    if args.stamp_halo is not None:
+        meta = {"admissible_halo": int(args.stamp_halo),
+                "method": "stamped",
+                "scale": gcfg.scale}
+    else:
+        meta = sweep_admissible_halo(
+            infer, scale=gcfg.scale, frame=args.sweep_frame,
+            tile_w=args.sweep_tile_w,
+            halos=[int(h) for h in args.sweep_halos.split(",")],
+            threshold_db=args.sweep_threshold_db, device=device)
+        meta["weights"] = "params_ema" if g_ema is not None else "params"
+    if args.val_dir and meta["admissible_halo"] is not None:
+        vc = meta["val_contract"] = val_dir_contract(
+            infer, args.val_dir, scale=gcfg.scale,
+            halo=meta["admissible_halo"], tile_w=args.sweep_tile_w,
+            max_images=args.val_max_images, device=device)
+        if vc["n_images"] == 0:
+            print(f"[cli] val contract: {vc['note']} "
+                  f"(halo={meta['admissible_halo']})")
+        else:
+            print(f"[cli] val contract at halo="
+                  f"{meta['admissible_halo']}: psnr_gt "
+                  f"whole={vc['psnr_gt_whole_db']:.4f} dB, "
+                  f"tiled={vc['psnr_gt_tiled_db']:.4f} dB "
+                  f"(delta {vc['delta_db']:+.4f} dB over "
+                  f"{vc['n_images']} images)")
+    path = write_halo_meta(args.out, meta)
+    if meta["admissible_halo"] is None:
+        # distinct from "no sidecar": the sidecar exists with
+        # admissible_halo=null, and `--halo auto` says so
+        print(f"[cli] warning: halo sweep found NO admissible "
+              f"halo at threshold {meta.get('threshold_db')} dB — "
+              f"sidecar {path} records the sweep; `--halo auto` will "
+              f"fall back to the conservative 8")
+    else:
+        print(f"[cli] stamped admissible_halo={meta['admissible_halo']} "
+              f"into {path}")
+    return 0
+
+
+def _interp(args, cfg) -> int:
+    """``cli interp``: θ = α·θ_GAN + (1−α)·θ_PSNR on ``--device``, written
+    as a BasicSR ``.pth``."""
+    from super_resolution_tpu_torch.checkpoint import net_interp
+    from super_resolution_tpu_torch.device import resolve_device
+    from super_resolution_tpu_torch.import_torch import (
+        export_generator,
+        import_generator,
+        load_pth,
+        save_pth,
+    )
+
+    device = resolve_device(args.device)
+
+    def load_any(path):
+        """(state dict, cfg) of a .pth or a `train` directory, the latter
+        EMA maturity-gated: blending an immature EMA would poison both
+        ends of the interpolation."""
+        if os.path.isfile(path):
+            return import_generator(load_pth(path))
+        if _train_dir(path):
+            from super_resolution_tpu_torch.checkpoint import (
+                restore_generator_params,
+            )
+
+            sd, step = restore_generator_params(path,
+                                                ema_decay=cfg.ema_decay)
+            print(f"[cli] restored checkpoint at step {step}")
+            return import_generator(sd)
+        raise SystemExit(f"interp: checkpoint not found: {path!r}")
+
+    pa, ca = load_any(args.psnr_ckpt)
+    pb, cb = load_any(args.gan_ckpt)
+    structural = ("channels", "filters", "growth", "n_blocks", "upsampler")
+    if any(getattr(ca, f) != getattr(cb, f) for f in structural):
+        raise SystemExit("interp: checkpoint architectures differ "
+                         f"({ca} vs {cb})")
+    blended = net_interp({k: v.to(device) for k, v in pa.items()},
+                         {k: v.to(device) for k, v in pb.items()},
+                         args.alpha)
+    save_pth(export_generator(blended, ca), args.out)
+    print(f"[cli] wrote interpolated .pth (alpha={args.alpha}) "
+          f"to {args.out}")
+    return 0
 
 
 def _halo_arg(v: str):
@@ -300,8 +486,7 @@ def main(argv=None):
                         "checkpoint directory of `train`) into a fresh GAN "
                         "state — the ESRGAN pretrain->GAN recipe")
     t.add_argument("--eval_dir", default=None,
-                   help="validation dir for periodic in-loop eval (not "
-                        "ported yet)")
+                   help="validation dir for periodic in-loop eval")
     t.add_argument("--eval_interval", type=int, default=None)
     t.add_argument("--profile_dir", default=None,
                    help="profiler trace output dir (not ported yet)")
@@ -314,6 +499,19 @@ def main(argv=None):
                    default="threads",
                    help="input pipeline backend ('grain' is not ported "
                         "yet)")
+
+    e = sub.add_parser("eval", help="PSNR/SSIM over a validation dir")
+    _add_common(e)
+    e.add_argument("--dataset_dir", required=True)
+    e.add_argument("--lr_dir", default=None,
+                   help="paired-LR directory for eval inputs (matched by "
+                        "stem) instead of bicubic synthesis")
+    e.add_argument("--checkpoint", required=True)
+    _add_tile_flags(e)
+    e.add_argument("--max_images", type=int, default=None)
+    e.add_argument("--self_ensemble", action="store_true",
+                   help="x8 flip/rotation test-time augmentation")
+    e.add_argument("--json", action="store_true")
 
     u = sub.add_parser("upscale",
                        help="×4 upscale an image, or every image in a "
@@ -352,7 +550,72 @@ def main(argv=None):
                          "'1920x1080,2048x2048'): one warm-up forward per "
                          "size before watching")
 
+    x = sub.add_parser("export",
+                       help="train checkpoint → release-shaped torch .pth "
+                            "({params, params_ema} per the BasicSR family "
+                            "convention)")
+    _add_common(x)
+    x.add_argument("--checkpoint", required=True,
+                   help="checkpoint directory of `train` (a torch .pth "
+                        "passes through re-wrapped)")
+    x.add_argument("--out", required=True)
+    x.add_argument("--style", default="basicsr",
+                   choices=("basicsr", "xinntao_old", "erik"),
+                   help="torch naming family to emit")
+    x.add_argument("--halo_sweep", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="measure the checkpoint's minimal admissible "
+                        "tiling halo (tiled-vs-whole probe sweep, fp32 "
+                        "lax with TF32 off, on --device) and stamp it "
+                        "into <out>.meta.json, which `upscale/serve/eval "
+                        "--halo auto` (the default) read.  On by "
+                        "default; --no-halo_sweep skips it, --stamp_halo "
+                        "records a measured halo instead")
+    x.add_argument("--val_dir", default=None,
+                   help="also measure, on real images at the stamped "
+                        "halo, PSNR against the ground truth of whole-"
+                        "frame and of tiled SR (images taken as HR, "
+                        "PIL-parity bicubic LR) and record the delta in "
+                        "the sidecar")
+    x.add_argument("--val_max_images", type=int, default=4,
+                   help="cap --val_dir images (each costs a whole-frame "
+                        "and a tiled inference)")
+    x.add_argument("--ema", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="include params_ema in the release (default: "
+                        "auto — included only when the checkpoint step "
+                        "is past the EMA maturity horizon 5/(1-decay) or "
+                        "the run was warm-started, because importers "
+                        "prefer params_ema and an immature EMA is the "
+                        "run's worst weights; --ema forces it in, "
+                        "--no-ema strips it)")
+    x.add_argument("--stamp_halo", type=int, default=None,
+                   help="stamp this admissible halo into <out>.meta.json "
+                        "without sweeping")
+    x.add_argument("--sweep_frame", type=int, default=192,
+                   help="probe frame side for --halo_sweep (must exceed "
+                        "--sweep_tile_w)")
+    x.add_argument("--sweep_tile_w", type=int, default=64)
+    x.add_argument("--sweep_halos", default="2,4,6,8")
+    x.add_argument("--sweep_threshold_db", type=float, default=55.0,
+                   help="minimal tiled-vs-whole PSNR to admit a halo "
+                        "(55 dB perturbs a ~25 dB PSNR-vs-GT by "
+                        "~0.005 dB)")
+
+    i = sub.add_parser("interp", help="network interpolation (ESRGAN §3.4)")
+    _add_common(i)
+    i.add_argument("--psnr_ckpt", required=True)
+    i.add_argument("--gan_ckpt", required=True)
+    i.add_argument("--alpha", type=float, required=True)
+    i.add_argument("--out", required=True)
+
     args = parser.parse_args(argv)
+    if args.cmd == "export" and args.val_dir and not args.halo_sweep \
+            and args.stamp_halo is None:
+        # the contract measurement needs a halo to measure at; without
+        # a sweep or a stamp it would be silently skipped
+        parser.error("--val_dir needs a halo to measure at: drop "
+                     "--no-halo_sweep, or pass --stamp_halo N")
     cfg = _build_cfg(args)
     if cfg.data_parallel > 1:
         raise NotImplementedError(
@@ -362,8 +625,7 @@ def main(argv=None):
     if args.cmd == "train":
         for flag, on in (("--multihost", args.multihost),
                          ("--loader grain", args.loader == "grain"),
-                         ("--profile_dir", bool(args.profile_dir)),
-                         ("--eval_dir", bool(args.eval_dir))):
+                         ("--profile_dir", bool(args.profile_dir))):
             if on:
                 raise NotImplementedError(
                     f"{flag} is not ported yet (ROADMAP.md)")
@@ -371,8 +633,38 @@ def main(argv=None):
 
         train(cfg, total_steps=args.steps, resume=args.resume,
               init_g_from=args.init_g_from, log_dir=args.log_dir,
-              sample_dir=args.sample_dir, device=args.device)
+              sample_dir=args.sample_dir, eval_dir=args.eval_dir,
+              eval_interval=args.eval_interval, device=args.device)
         return 0
+
+    if args.cmd == "eval":
+        from super_resolution_tpu_torch.device import resolve_device
+        from super_resolution_tpu_torch.train.evaluate import (
+            evaluate_directory,
+        )
+
+        device = resolve_device(args.device)
+        g_sd, cfg = _load_generator(args, cfg)
+        tile, tile_w, bucket_h = _resolve_tile_geometry(args)
+        out = evaluate_directory(cfg, g_sd, args.dataset_dir,
+                                 tile=tile, halo=_resolve_halo(args),
+                                 tile_w=tile_w, bucket_h=bucket_h,
+                                 tile_batch=args.tile_batch,
+                                 max_images=args.max_images,
+                                 use_self_ensemble=args.self_ensemble,
+                                 lr_dir=args.lr_dir, device=device)
+        if args.json:
+            print(json.dumps(out))
+        else:
+            for k, v in out.items():
+                print(f"{k}: {v:.4f}" if isinstance(v, float)
+                      else f"{k}: {v}")
+        return 0
+
+    if args.cmd == "export":
+        return _export(args, cfg)
+    if args.cmd == "interp":
+        return _interp(args, cfg)
 
     import torch
 

@@ -13,6 +13,14 @@ package's ``import_torch.py``):
   res_blocks.{b}.dense_blocks.{k}.b{j}.0, conv2, upsampling.{0,3},
   conv3.{0,2}`` (LeakyReLU slope 0.01)
 
+:func:`export_generator` is the inverse of :func:`import_generator`:
+the port's state dict under any of the three families' names, and
+:func:`export_generator_release` / :func:`save_pth` write it in BasicSR's
+release shape.  :func:`import_discriminator` and
+:func:`export_discriminator` map the sequential ``model.{idx}``
+discriminator naming to and from the port's ``Discriminator``, with its
+BatchNorm statistics.
+
 :func:`state_dict_from_flax` carries the JAX package's generator tree
 across (HWIO → OIHW), :func:`discriminator_state_dict_from_flax` and
 :func:`vgg_state_dict_from_flax` the discriminator (with its BatchNorm
@@ -30,7 +38,10 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from super_resolution_tpu_torch.config import GeneratorConfig
+from super_resolution_tpu_torch.config import (
+    DiscriminatorConfig,
+    GeneratorConfig,
+)
 
 STYLES = ("basicsr", "xinntao_old", "erik")
 
@@ -170,6 +181,106 @@ def import_generator(
         raise ValueError(f"unmapped checkpoint keys: {sorted(extra)[:8]} "
                          "(pass strict=False to ignore)")
     return out, inferred
+
+
+def export_generator(state_dict: Dict[str, torch.Tensor],
+                     cfg: GeneratorConfig,
+                     style: str = "basicsr") -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`import_generator`: the port's BasicSR-named
+    state dict → the state dict of naming family ``style`` (float32 CPU
+    tensors), loadable by the reference family's tooling and by both
+    packages' importers."""
+    sd: Dict[str, torch.Tensor] = {}
+    for dst, src in generator_key_map(style, cfg.n_blocks).items():
+        for leaf in ("weight", "bias"):
+            sd[f"{dst}.{leaf}"] = _tensor(state_dict[f"{src}.{leaf}"])
+    return sd
+
+
+def export_generator_release(state_dict: Dict[str, torch.Tensor],
+                             cfg: GeneratorConfig,
+                             ema: Dict[str, torch.Tensor] | None = None,
+                             style: str = "basicsr") -> Dict:
+    """Release-shaped state dict in the BasicSR family's convention, the
+    one :func:`load_pth` honours on the read side (``params_ema``
+    preferred): ``{"params": …, "params_ema": …}`` when an EMA exists,
+    else the flat state dict."""
+    sd = export_generator(state_dict, cfg, style=style)
+    if ema is None:
+        return sd
+    return {"params": sd, "params_ema": export_generator(ema, cfg,
+                                                         style=style)}
+
+
+def save_pth(state_dict: Dict, path: str) -> None:
+    """``torch.save`` a (possibly wrapper-nested) name → tensor state
+    dict as contiguous CPU tensors of their own."""
+    def conv(v):
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        return v.detach().cpu().contiguous().clone()
+
+    torch.save({k: conv(v) for k, v in state_dict.items()}, path)
+
+
+def _discriminator_layers(cfg: DiscriminatorConfig):
+    """(kind, port module name) of every index of the sequential
+    ``model.{idx}`` stack; the stateless LeakyReLUs take an index each
+    (kind None)."""
+    layers = []
+    for i in range(cfg.n_scales):
+        layers.append(("conv", f"conv{i}_0"))
+        if i != 0:
+            layers.append(("bn", f"bn{i}_0"))
+        layers.append((None, None))
+        layers.append(("conv", f"conv{i}_1"))
+        layers.append(("bn", f"bn{i}_1"))
+        layers.append((None, None))
+    layers.append(("conv", "head"))
+    return layers
+
+
+# the state-dict leaves of each kind of layer (None: a LeakyReLU)
+_LEAVES = {"conv": ("weight", "bias"),
+           "bn": ("weight", "bias", "running_mean", "running_var"),
+           None: ()}
+
+
+def import_discriminator(
+        state_dict: Dict[str, torch.Tensor],
+        cfg: DiscriminatorConfig | None = None,
+) -> Tuple[Dict[str, torch.Tensor], DiscriminatorConfig]:
+    """A sequential ``model.{idx}`` discriminator state dict → (the port's
+    ``Discriminator`` state dict, cfg), the architecture inferred from
+    the shapes when ``cfg`` is None."""
+    sd = {k: _tensor(v) for k, v in state_dict.items()}
+    if cfg is None:
+        first = sd["model.0.weight"]
+        widths = {v.shape[0] for k, v in sd.items()
+                  if k.endswith(".weight") and v.dim() == 4} - {1}
+        cfg = DiscriminatorConfig(channels=first.shape[1],
+                                  base_filters=first.shape[0],
+                                  n_scales=len(widths))
+    out: Dict[str, torch.Tensor] = {}
+    for idx, (kind, name) in enumerate(_discriminator_layers(cfg)):
+        for leaf in _LEAVES[kind]:
+            out[f"{name}.{leaf}"] = sd[f"model.{idx}.{leaf}"]
+    return out, cfg
+
+
+def export_discriminator(state_dict: Dict[str, torch.Tensor],
+                         cfg: DiscriminatorConfig
+                         ) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`import_discriminator`: the port's
+    ``Discriminator`` state dict → the sequential ``model.{idx}`` one
+    (the reference's layer numbering, LeakyReLU indices included)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for idx, (kind, name) in enumerate(_discriminator_layers(cfg)):
+        for leaf in _LEAVES[kind]:
+            sd[f"model.{idx}.{leaf}"] = _tensor(state_dict[f"{name}.{leaf}"])
+        if kind == "bn":
+            sd[f"model.{idx}.num_batches_tracked"] = torch.tensor(0)
+    return sd
 
 
 # the JAX package's generator tree names → BasicSR names

@@ -1,7 +1,15 @@
-"""Observability of the training loop (the JAX package's ``metrics.py``):
-windowed scalar averaging with JSONL, stdout and optional tensorboard
-sinks, and the throughput meter.  The image metrics (PSNR/SSIM tables)
-come with the eval slice."""
+"""Observability (the JAX package's ``metrics.py``): the image metrics
+of eval (PSNR and SSIM, RGB and Y channel), windowed scalar averaging
+with JSONL, stdout and optional tensorboard sinks, and the throughput
+meter.
+
+Images keep the JAX package's layout, ``(..., H, W, C)`` in [0, 1].
+:func:`ssim` takes its local moments as E[x²] − μ², which cancels: under
+TF32 (cuDNN's default for float32 convs, about three decimal digits) it
+gives SSIM above 1.  So its Gaussian filter runs inside
+:func:`device.no_tf32`, in full float32, as the JAX package pins
+``Precision.HIGHEST``.
+"""
 
 from __future__ import annotations
 
@@ -12,6 +20,75 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from super_resolution_tpu_torch.device import no_tf32
+
+
+# --------------------------------------------------------------------------
+# Image metrics
+# --------------------------------------------------------------------------
+
+def rgb_to_y(x: torch.Tensor) -> torch.Tensor:
+    """ITU-R BT.601 luma of [0, 1] RGB (SR papers report Y-channel PSNR
+    beside RGB)."""
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    return (65.481 * r + 128.553 * g + 24.966 * b + 16.0) / 255.0
+
+
+def psnr01(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    mse = torch.mean((pred - target) ** 2)
+    return 10.0 * torch.log10(1.0 / torch.clamp(mse, min=1e-12))
+
+
+def _gaussian_window() -> np.ndarray:
+    """The 11×11 Gaussian window (σ = 1.5), float32, summing to 1."""
+    xs = np.arange(-5, 6, dtype=np.float64)
+    win = np.exp(-(xs ** 2) / (2 * 1.5 ** 2))
+    win = (win / win.sum()).astype(np.float32)
+    return np.outer(win, win)
+
+
+def ssim(pred: torch.Tensor, target: torch.Tensor,
+         max_val: float = 1.0) -> torch.Tensor:
+    """SSIM of (H, W, C) or (B, H, W, C) images with the standard 11×11
+    Gaussian window (σ = 1.5) as a depthwise VALID float32 conv
+    (skimage / Wang et al. constants), TF32 off."""
+    c1 = (0.01 * max_val) ** 2
+    c2 = (0.03 * max_val) ** 2
+    if pred.dim() == 3:
+        pred, target = pred[None], target[None]
+    c = pred.shape[-1]
+    w = torch.from_numpy(_gaussian_window()).to(pred.device)
+    w = w[None, None].expand(c, 1, 11, 11).contiguous()
+
+    def filt(img):
+        return F.conv2d(img.float().permute(0, 3, 1, 2), w, groups=c)
+
+    with no_tf32():
+        mu_x, mu_y = filt(pred), filt(target)
+        mu_x2, mu_y2, mu_xy = mu_x * mu_x, mu_y * mu_y, mu_x * mu_y
+        sig_x = filt(pred * pred) - mu_x2
+        sig_y = filt(target * target) - mu_y2
+        sig_xy = filt(pred * target) - mu_xy
+    s = ((2 * mu_xy + c1) * (2 * sig_xy + c2)) / \
+        ((mu_x2 + mu_y2 + c1) * (sig_x + sig_y + c2))
+    return torch.mean(s)
+
+
+def eval_metrics(sr01: torch.Tensor,
+                 hr01: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The eval table: RGB and Y-channel PSNR, and SSIM."""
+    return {
+        "psnr_rgb": psnr01(sr01, hr01),
+        "psnr_y": psnr01(rgb_to_y(sr01), rgb_to_y(hr01)),
+        "ssim": ssim(sr01, hr01),
+    }
+
+
+# --------------------------------------------------------------------------
+# Scalar aggregation / logging
+# --------------------------------------------------------------------------
 
 
 class MetricLogger:
@@ -72,6 +149,14 @@ class MetricLogger:
             out.update(extra)
         self._emit(step, prefix, out)
         return out
+
+    def log_once(self, step: int, prefix: str,
+                 metrics: Dict[str, float]) -> None:
+        """Write a one-off metrics line (an eval result) at once, without
+        touching the windowed accumulator; non-numeric values are
+        dropped."""
+        self._emit(step, prefix, {k: float(v) for k, v in metrics.items()
+                                  if isinstance(v, (int, float))})
 
     def close(self):
         if self._file:

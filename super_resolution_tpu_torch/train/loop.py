@@ -1,10 +1,10 @@
 """Training orchestration (the JAX package's ``train/loop.py``): warmup
 L1 pretrain -> alternating GAN steps, periodic sampling and
-checkpointing, metrics, resume.
+checkpointing, in-loop eval, metrics, resume.
 
 The warmup/GAN switch is host-side control flow over the two steps.  The
 port trains on one device: the mesh and multi-host branches of the JAX
-loop wait for DDP, and in-loop eval waits for ``evaluate.py``.
+loop wait for DDP.
 """
 
 from __future__ import annotations
@@ -127,10 +127,6 @@ def train(cfg: TrainConfig,
         raise NotImplementedError(
             "data_parallel > 1 needs DDP, which is not ported yet "
             "(ROADMAP.md)")
-    if eval_dir:
-        raise NotImplementedError(
-            "in-loop eval (eval_dir) is not ported yet (ROADMAP.md): it "
-            "needs train/evaluate.py")
     device = resolve_device(device)
     cfg = training_cfg(cfg)
     total_steps = total_steps if total_steps is not None \
@@ -214,6 +210,19 @@ def train(cfg: TrainConfig,
         if sample_dir and done % cfg.sample_interval == 0:
             _save_sample_grid(cfg, state, batch, done, sample_dir,
                               logger=logger, ema_warm=ema_warm)
+        if eval_dir and done % (eval_interval or cfg.checkpoint_interval) == 0:
+            from super_resolution_tpu_torch.train.evaluate import (
+                evaluate_directory,
+            )
+
+            tile = max(cfg.data.lr_patch, 48)
+            infer = make_infer_fn(
+                cfg, eval_params(cfg, state, warm_start=ema_warm), device)
+            ev = evaluate_directory(cfg, None, eval_dir, tile=tile,
+                                    halo=min(8, tile // 4), max_images=8,
+                                    infer_fn=infer, device=device)
+            logger.log_once(done, "eval",
+                            {f"val_{k}": v for k, v in ev.items()})
         if done % cfg.checkpoint_interval == 0 or done == total_steps:
             data_state = pulled_states.get(n_consumed) if loader is not None \
                 else None

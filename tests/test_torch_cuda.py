@@ -719,3 +719,51 @@ def test_conv3x3_prefix_of_one_buffer_into_a_slice_of_another(cuda):
     want = conv3x3_plain(src[..., :64], w, b, act=True, slope=0.2)
     torch.testing.assert_close(dst[..., 40:72].float(), want.float(),
                                atol=2.0 ** -8, rtol=2.0 ** -7)
+
+
+# Eval on the card: the metrics with TF32 off, and evaluate_directory
+# through the dense-block kernel against the CPU.
+
+def test_metrics_on_the_card_match_the_cpu(cuda):
+    from super_resolution_tpu_torch.metrics import eval_metrics
+
+    rng = np.random.default_rng(8)
+    a = rng.random((2, 48, 56, 3), dtype=np.float32)
+    b = np.clip(a + 0.05 * rng.standard_normal(a.shape), 0, 1).astype(
+        np.float32)
+    ref = eval_metrics(torch.from_numpy(a), torch.from_numpy(b))
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True        # cuDNN's default
+    try:
+        got = eval_metrics(torch.from_numpy(a).to(cuda),
+                           torch.from_numpy(b).to(cuda))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    for k, v in ref.items():
+        assert abs(float(got[k]) - float(v)) <= 1e-5, k
+
+
+def test_evaluate_directory_on_the_card_matches_the_cpu(cuda, tmp_path):
+    import dataclasses
+
+    from super_resolution_tpu_torch.config import TrainConfig
+    from super_resolution_tpu_torch.train.evaluate import evaluate_directory
+
+    gcfg = GeneratorConfig(n_blocks=1, filters=16, growth=8,
+                           init="torch_default")
+    sd = rrdb.RRDBNet(gcfg, torch.Generator().manual_seed(9)).state_dict()
+    cfg = dataclasses.replace(TrainConfig(), generator=gcfg,
+                              compute_dtype="float32")
+    rng = np.random.default_rng(9)
+    for i, (h, w) in enumerate(((64, 64), (48, 60))):
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)) \
+            .save(tmp_path / f"{i}.png")
+    kw = dict(tile=8, halo=2, tile_batch=4)
+    ref = evaluate_directory(cfg, sd, str(tmp_path), device="cpu", **kw)
+    before = dense_block.launches
+    got = evaluate_directory(cfg, sd, str(tmp_path), device="cuda", **kw)
+    assert dense_block.launches > before
+    assert got["n_images"] == ref["n_images"] == 2
+    for k in ("psnr_rgb", "psnr_y"):
+        assert abs(got[k] - ref[k]) <= 1e-3, k
+    assert abs(got["ssim"] - ref["ssim"]) <= 1e-5

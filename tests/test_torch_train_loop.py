@@ -180,7 +180,6 @@ def test_warm_start_seeds_the_ema_and_writes_provenance(tmp_path):
     ["--multihost"],
     ["--loader", "grain"],
     ["--profile_dir", "trace"],
-    ["--eval_dir", "val"],
     ["--data_parallel", "2"],
     ["--preset", "train_gan_dp8"],
 ], ids=lambda f: " ".join(f))
