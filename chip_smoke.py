@@ -129,7 +129,38 @@ and prints no result line:
    {params, params_ema}, ``cli interp`` of the release and the serve
    weights at alpha 0, 1 (bit for bit) and 0.5 (1e-6); the sweep's wall
    time.
-16. the ``kernels`` JSON line, the card's name and power limit as
+16. polyphase (after tools): the 23-block bf16 forward on 8 x 128^2
+   with ``tail_up="polyphase"`` under auto, pallas_cf_tail, pallas,
+   pallas_fused and lax beside the naive tail with the same weights:
+   launches of one forward by formula (the upconvs leave the single-conv
+   kernel: 2 under pallas_cf_tail, 349 under pallas), at least 40 dB
+   from the naive tail's output, ms per batch and MP/s of both tails in
+   turns; fp32 at a depth of 2 blocks (TF32 off) within 2e-5 + 1e-5
+   |naive|; two full-width GAN steps with the polyphase tail under
+   auto (launches, finite metrics, the upconvs' gradients).
+17. train-dp: full-width ``train_gan_dfm`` (23 blocks, global batch 16
+   of 192^2 HR, bf16).  (a) ``cli train --data_parallel 1 --multihost
+   --num_processes 1 --process_id 0 --coordinator 127.0.0.1:<port>``
+   (NCCL, one rank), 2 warmup + 2 GAN steps, equal bit for bit to the
+   plain ``cli train`` in every tensor of the checkpoint (parameters,
+   D statistics, Adam states, EMA, generators), every step's metrics
+   and the logged line (cuDNN deterministic in both); one profiled GAN
+   step under that group.  (b) two ranks on the one card over gloo
+   (``parallel.dp.launch`` with the device list ``cuda:0, cuda:0``), 8
+   rows each, one GAN step of each shape (the reference 4-forward step
+   and ``dedup_d_hr``) against one process with the 16 rows: losses
+   within 5e-4, G and D parameters and D's running statistics within
+   1e-3 (the JAX package's tolerances), the two ranks equal bit for
+   bit; ms per step per rank, the all-reduces' share of a profiled step
+   and the card's idle share.  (c) the per-rank control (rank 0's rows
+   alone, no all-reduce) must miss those tolerances.
+18. profile-dir: ``cli train --profile_dir D`` (1 + 1 steps, 2 blocks):
+   one trace in D naming the dense-block kernels, forward and backward.
+19. build-cache: ``cli upscale --conv_impl pallas --compile_cache_dir
+   <fresh>`` (2 blocks) twice, each in its own process with a logging
+   ``nvcc`` first on PATH: the first builds conv3x3's library into the
+   directory, the second starts no nvcc; both wall times.
+20. the ``kernels`` JSON line, the card's name and power limit as
    nvidia-smi prints them, then the ``ok`` JSON line last; the total
    wall time on stderr.
 
@@ -139,6 +170,7 @@ exits nonzero before printing any result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -2565,6 +2597,549 @@ def lax_train_phase():
                 totals=totals)
 
 
+# [polyphase]: the flagship forward with tail_up="polyphase" against the
+# naive tail with the same weights, under every conv impl
+POLY_IMPLS = ("auto", "pallas_cf_tail", "pallas", "pallas_fused", "lax")
+POLY_FP32_TOL = (2e-5, 1e-5)       # (atol, rtol·|naive|), TF32 off
+
+
+def polyphase_launches(impl, gcfg):
+    """Launches of one forward with the polyphase tail: the naive tail's,
+    less the upconvs under the impls that ran them on the single-conv
+    kernel (the polyphase tail is F.conv2d under every impl, as the JAX
+    package bypasses its tail conv paths there)."""
+    if impl == "auto":
+        return {"dense_block": gcfg.n_blocks * gcfg.n_dense * 5}
+    want = dict(per_forward_launches(impl, gcfg))
+    if "conv3x3" in want:
+        want["conv3x3"] -= gcfg.n_upsample
+    return want
+
+
+def psnr_db(out, ref):
+    """PSNR of ``out`` against ``ref`` over ``ref``'s range."""
+    rng_ = (ref.max() - ref.min()).item()
+    mse = ((out - ref) ** 2).mean().item()
+    return 10 * math.log10(rng_ ** 2 / mse) if mse > 0 else float("inf")
+
+
+def polyphase_phase():
+    """The polyphase tail: the 23-block bf16 forward on 8 x 128^2 under
+    each impl beside the naive tail (launches by formula, >= 40 dB from
+    the naive tail's output, ms per batch and MP/s in turns), both tails
+    in fp32 at a depth of 2 blocks (TF32 off, 2e-5 + 1e-5 |naive|), and
+    two GAN steps with the polyphase tail under auto."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    import super_resolution_tpu_torch.models.rrdb as rrdb
+    from super_resolution_tpu_torch.config import (
+        GeneratorConfig,
+        TrainConfig,
+        preset,
+    )
+    from super_resolution_tpu_torch.data import SyntheticPatches
+    from super_resolution_tpu_torch.train.state import init_state
+    from super_resolution_tpu_torch.train.steps import (
+        make_gan_step,
+        make_infer_fn,
+    )
+
+    ops = importlib.import_module(
+        "super_resolution_tpu_torch.ops.dense_block")
+    counters = launch_counters()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((8, 128, 128, 3))
+                         .astype(np.float32)).cuda()
+    results = {}
+    for depth, dtype in ((23, "bfloat16"), (2, "float32")):
+        sd = rrdb.RRDBNet(GeneratorConfig(n_blocks=depth, init=SEED_INIT),
+                          torch.Generator().manual_seed(0)).state_dict()
+        for impl in POLY_IMPLS:
+            infer = {tail: make_infer_fn(TrainConfig(
+                compute_dtype=dtype, generator=GeneratorConfig(
+                    n_blocks=depth, init=SEED_INIT, conv_impl=impl,
+                    tail_up=tail)), sd, "cuda")
+                for tail in ("naive", "polyphase")}
+            for f in infer.values():
+                f(x)                                   # warm-up
+            torch.cuda.synchronize()
+            for f in counters.values():
+                f.launches = 0
+            out = infer["polyphase"](x)
+            torch.cuda.synchronize()
+            got = {n: f.launches for n, f in counters.items() if f.launches}
+            ref = infer["naive"](x)
+            if dtype == "float32":
+                atol, rtol = POLY_FP32_TOL
+                err = (out - ref).abs()
+                worst = (err - rtol * ref.abs()).max().item()
+                res = dict(max_abs_err=err.max().item(),
+                           worst_over_rtol=worst)
+                print(f"[polyphase] fp32 {impl} (2 blocks), polyphase vs "
+                      f"naive tail: " + json.dumps(res), flush=True)
+                if tuple(out.shape) != (8, 512, 512, 3) or not worst <= atol:
+                    fail(f"fp32 polyphase tail under {impl} differs from "
+                         f"the naive tail: {res}")
+                results[f"fp32_{impl}"] = res
+                continue
+            want = polyphase_launches(impl, GeneratorConfig())
+            psnr = psnr_db(out, ref)
+            turns = [time_ms(lambda: infer[t](x), 5) for t in
+                     ("naive", "polyphase", "polyphase", "naive")]
+            ms_n, ms_p = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+            res = dict(launches=got, want=want, psnr_db_vs_naive=psnr,
+                       max_abs_err=(out - ref).abs().max().item(),
+                       ms=ms_p, naive_ms=ms_n, ms_turns=turns,
+                       mp_per_s=8 * 512 * 512 / 1e6 / (ms_p / 1e3),
+                       naive_mp_per_s=8 * 512 * 512 / 1e6 / (ms_n / 1e3))
+            results[impl] = res
+            print(f"[polyphase] {impl}: " + json.dumps(res), flush=True)
+            if got != want:
+                fail(f"polyphase {impl}: one forward launched {got}, want "
+                     f"{want}")
+            if tuple(out.shape) != (8, 512, 512, 3) or \
+                    not bool(torch.isfinite(out).all()):
+                fail(f"polyphase {impl}: output {tuple(out.shape)} is not "
+                     f"finite (8,512,512,3)")
+            if not psnr >= BF16_MODEL_PSNR_FLOOR_DB:
+                fail(f"polyphase {impl}: {psnr} dB from the naive tail "
+                     f"(floor {BF16_MODEL_PSNR_FLOOR_DB})")
+            del infer
+
+    # two GAN steps with the polyphase tail, full width, under auto
+    cfg = preset("train_gan_dfm")
+    cfg = dataclasses.replace(cfg, generator=dataclasses.replace(
+        cfg.generator, tail_up="polyphase"))
+    gcfg = cfg.generator
+    n_blocks = gcfg.n_blocks * gcfg.n_dense
+    want = dict(fwd=n_blocks * ops.LAUNCHES_PER_BLOCK,
+                bwd=n_blocks * ops.BWD_LAUNCHES_PER_BLOCK)
+    state = init_state(cfg, "cuda")
+    step = make_gan_step(cfg)
+    it = iter(SyntheticPatches(cfg.data, seed=5))
+    steps = []
+    for _ in range(2):
+        batch = torch.from_numpy(next(it)).cuda()
+        torch.cuda.synchronize()
+        f0, b0 = ops.dense_block.launches, ops.dense_block_bwd.launches
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        torch.cuda.synchronize()
+        steps.append(dict(ms=(time.perf_counter() - t0) * 1e3,
+                          fwd=ops.dense_block.launches - f0,
+                          bwd=ops.dense_block_bwd.launches - b0,
+                          metrics={k: float(v) for k, v in m.items()}))
+    up_grad = [float(getattr(state.g, f"conv_up{u}").weight.grad.abs().max())
+               for u in (1, 2)]
+    print(f"[polyphase] GAN steps under auto (full width, 16 x 192^2): "
+          + json.dumps(dict(steps=steps, want=want,
+                            conv_up_grad_max=up_grad)), flush=True)
+    for r in steps:
+        if r["fwd"] != want["fwd"] or r["bwd"] != want["bwd"]:
+            fail(f"polyphase GAN step launched {r['fwd']} / {r['bwd']}, "
+                 f"want {want}")
+        bad = [k for k, v in r["metrics"].items() if not math.isfinite(v)]
+        if bad:
+            fail(f"polyphase GAN step: metrics {bad} not finite")
+    if not all(0 < g < math.inf for g in up_grad):
+        fail(f"the polyphase upconvs' gradients are {up_grad}")
+    results["gan_steps"] = steps
+    del state
+    return results
+
+
+# [train-dp]: data parallel training at full width (train_gan_dfm, 23
+# blocks, global batch 16 of 192^2 HR, bf16)
+DP_LOSS_ATOL, DP_PARAM_ATOL = 5e-4, 1e-3   # the JAX package's, test_dp.py
+DP_LOSSES = ("loss_g", "loss_d", "loss_adv", "loss_pixel", "loss_percep")
+DP_TIMED_STEPS = 3
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def merged_ms(events, pattern):
+    """Host ms covered by the profiler's host events whose name matches
+    ``pattern`` (a regex), nested ones counted once."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CPU
+                   and re.search(pattern, e.name))
+    total, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e3
+
+
+ALL_REDUCE = r"(?i)all_?reduce|nccl"
+
+
+def dp_cfg(dedup):
+    """train_gan_dfm at full width with the torch_default init: a freshly
+    drawn msra_scaled G gives a near-constant SR image, on which D's
+    batch statistics cancel and summation order alone moves the step."""
+    from super_resolution_tpu_torch.config import preset
+
+    cfg = preset("train_gan_dfm")
+    return dataclasses.replace(cfg, dedup_d_hr=dedup,
+                               generator=dataclasses.replace(
+                                   cfg.generator, init=SEED_INIT))
+
+
+def dp_gan_step(cfg, device, part):
+    """One GAN step from the seeded initial state on rows ``part`` of the
+    global batch: (CPU copy of metrics, parameters, D statistics; the
+    state; the step)."""
+    import torch
+
+    from super_resolution_tpu_torch.data import SyntheticPatches
+    from super_resolution_tpu_torch.train.state import init_state
+    from super_resolution_tpu_torch.train.steps import make_gan_step
+
+    state = init_state(cfg, device)
+    step = make_gan_step(cfg)
+    batch = torch.from_numpy(next(iter(SyntheticPatches(
+        cfg.data, seed=123, part=part)))).to(device)
+    metrics = step(state, batch)
+    snap = {"metrics": {k: float(v) for k, v in metrics.items()},
+            "g": {k: v.detach().cpu() for k, v in state.g.state_dict()
+                  .items()},
+            "d": {k: v.detach().cpu() for k, v in state.d.state_dict()
+                  .items()}}
+    return snap, state, step, batch
+
+
+def timed_steps(step, state, batch, n):
+    """ms of each of ``n`` steps (host clock around a synchronised
+    step)."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def step_profile(step, state, batch, ms):
+    """One step under torch.profiler: the all-reduces' host ms (and
+    device ms of NCCL kernels), the device's busy ms, against the
+    unprofiled ``ms`` per step."""
+    import torch
+
+    t0 = time.perf_counter()
+    prof, by_name = device_times(lambda: step(state, batch))
+    wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(by_name.values())
+    nccl = sum(t for n, t in by_name.items() if "nccl" in n.lower())
+    host = merged_ms(prof.events(), ALL_REDUCE)
+    # the profiler slows the host's other ops more than the waits of the
+    # all-reduces: the share of the profiled step is a lower bound, the
+    # share of the unprofiled step an upper one
+    return dict(profiled_step_ms=wall, all_reduce_host_ms=host,
+                all_reduce_share_of_profiled_step=host / wall,
+                all_reduce_share_of_step=host / ms,
+                nccl_kernels_device_ms=nccl, device_busy_ms=busy,
+                device_idle_share=max(0.0, 1 - busy / ms) if busy else None)
+
+
+def dp_rank_main(device, out_dir):
+    """One of [train-dp] (b)'s two gloo ranks on the one card: a GAN step
+    of each shape on this rank's 8 rows, the launches they made, ms per
+    step and one profiled step."""
+    import torch
+
+    from super_resolution_tpu_torch.parallel import dp
+
+    counters = launch_counters()
+    for f in counters.values():
+        f.launches = 0
+    part = (dp.rank(), dp.world_size())
+    out = {}
+    for dedup in (True, False):     # the default step shape timed last
+        out[f"dedup{dedup}"], state, step, batch = dp_gan_step(
+            dp_cfg(dedup), device, part)
+    out["launches"] = {n: f.launches for n, f in counters.items()
+                       if f.launches}
+    times = timed_steps(step, state, batch, DP_TIMED_STEPS + 1)[1:]
+    ms = sorted(times)[len(times) // 2]
+    out["ms"], out["ms_runs"] = ms, times
+    out["profile"] = step_profile(step, state, batch, ms)
+    torch.save(out, os.path.join(out_dir, f"rank{dp.rank()}.pt"))
+
+
+def trees_equal(a, b, path=""):
+    """Paths where two nested trees of tensors and numbers differ."""
+    import torch
+
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [f"{path}: keys"]
+        return [d for k in a for d in trees_equal(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in trees_equal(x, y, f"{path}[{i}]")]
+    if isinstance(a, torch.Tensor):
+        return [] if torch.equal(a, b) else [path]
+    return [] if a == b else [path]
+
+
+def dp_distance(a, b):
+    """(largest |loss delta|, largest |G or D parameter / statistic
+    delta|) between two step snapshots."""
+    loss = max(abs(a["metrics"][k] - b["metrics"][k]) for k in DP_LOSSES)
+    param = max(float((a[t][k].float() - b[t][k].float()).abs().max())
+                for t in ("g", "d") for k in b[t])
+    return loss, param
+
+
+def train_dp_phase():
+    """(a) ``cli train --data_parallel 1 --multihost ...`` (NCCL, one
+    rank) against the plain ``cli train``: bit for bit; (b) two gloo
+    ranks on the one card with 8 rows each against one process with the
+    16 rows, both step shapes, at the JAX package's tolerances; (c) the
+    per-rank control must miss them.  ms per step, the all-reduce's
+    share and the device's idle share."""
+    import torch
+
+    from super_resolution_tpu_torch.config import preset
+    from super_resolution_tpu_torch.parallel import dp, multihost
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["train", "--preset", "train_gan_dfm", "--dataset_dir",
+                  os.path.join(tmp, "no_dataset"), "--steps", "4",
+                  "--warmup_batches", "2"]
+        runs = {}
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True   # for the bit compare
+        try:
+            for name, extra in (("plain", []), ("nccl1", [
+                    "--data_parallel", "1", "--multihost",
+                    "--num_processes", "1", "--process_id", "0",
+                    "--coordinator", f"127.0.0.1:{free_port()}"])):
+                ck, log = (os.path.join(tmp, f"{name}_{d}")
+                           for d in ("ck", "log"))
+                rc, records, totals = cli_train_recorded(
+                    [*common, "--checkpoint_dir", ck, "--log_dir", log,
+                     *extra])
+                if rc != 0 or dp.active():
+                    fail(f"cli train ({name}) returned {rc}")
+                tree = torch.load(os.path.join(ck, "4", "state.pt"),
+                                  map_location="cpu", weights_only=True)
+                with open(os.path.join(log, "metrics.jsonl")) as f:
+                    logged = [json.loads(line) for line in f]
+                for line in logged:     # a wall-clock rate, not a result
+                    line.pop("mp_per_sec_per_chip")
+                runs[name] = dict(records=records, totals=totals,
+                                  tree=tree, logged=logged)
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        a, b = runs["plain"], runs["nccl1"]
+        diffs = trees_equal(a["tree"], b["tree"])
+        diffs += trees_equal([r["metrics"] for r in a["records"]],
+                             [r["metrics"] for r in b["records"]], "steps")
+        diffs += trees_equal(a["logged"], b["logged"], "metrics.jsonl")
+        res["a"] = dict(
+            bit_for_bit=not diffs, differing=diffs[:8],
+            plain_step_ms=[r["ms"] for r in a["records"]],
+            nccl1_step_ms=[r["ms"] for r in b["records"]],
+            launches=b["totals"])
+        print("[train-dp] (a) NCCL, one rank, vs plain cli train (2 warmup "
+              "+ 2 GAN steps, cuDNN deterministic in both): "
+              + json.dumps(res["a"]), flush=True)
+        if diffs:
+            fail(f"the one-rank NCCL run differs from the plain run in "
+                 f"{diffs[:8]}")
+        if b["totals"]["dense_block"] == 0 or \
+                b["totals"]["dense_block_bwd"] == 0:
+            fail("the data-parallel run launched no dense-block kernel")
+        del runs, a, b
+
+    # the all-reduce's cost under NCCL at world size 1, one profiled step
+    multihost.initialize(f"127.0.0.1:{free_port()}", 1, 0, backend="nccl")
+    try:
+        _, state, step, batch = dp_gan_step(dp_cfg(False), "cuda", (0, 1))
+        times = timed_steps(step, state, batch, DP_TIMED_STEPS)
+        ms = sorted(times)[len(times) // 2]
+        res["nccl1"] = dict(ms=ms, ms_runs=times,
+                            **step_profile(step, state, batch, ms))
+        del state
+    finally:
+        torch.distributed.destroy_process_group()
+    print("[train-dp] NCCL, one rank, GAN step: " + json.dumps(
+        res["nccl1"]), flush=True)
+
+    # (b) two ranks on the one card over gloo, 8 rows each
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dp.launch(dp_rank_main, (tmp,), ["cuda:0", "cuda:0"],
+                  init_method=f"file://{tmp}/store", timeout_s=600)
+        launch_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+    b = dict(launch_s=launch_s, launches_per_rank=[r["launches"]
+                                                   for r in ranks],
+             ms_per_rank=[r["ms"] for r in ranks],
+             ms_runs_per_rank=[r["ms_runs"] for r in ranks],
+             profile_per_rank=[r["profile"] for r in ranks])
+    busy = [r["profile"]["device_busy_ms"] for r in ranks]
+    b["card_idle_share"] = max(0.0, 1 - sum(busy) / max(b["ms_per_rank"])) \
+        if all(busy) else None
+    gcfg = preset("train_gan_dfm").generator
+    n_fwd = gcfg.n_blocks * gcfg.n_dense * 5
+    for dedup in (False, True):
+        ref, _, _, _ = dp_gan_step(dp_cfg(dedup), "cuda", (0, 1))
+        ctl, _, _, _ = dp_gan_step(dp_cfg(dedup), "cuda", (0, 2))
+        got = ranks[0][f"dedup{dedup}"]
+        loss, param = dp_distance(got, ref)
+        c_loss, c_param = dp_distance(ctl, ref)
+        same = not trees_equal({k: got[k] for k in ("g", "d", "metrics")},
+                               {k: ranks[1][f"dedup{dedup}"][k]
+                                for k in ("g", "d", "metrics")})
+        b[f"dedup{dedup}"] = dict(
+            loss_delta=loss, param_delta=param, ranks_equal=same,
+            control_loss_delta=c_loss, control_param_delta=c_param,
+            losses={k: [got["metrics"][k], ref["metrics"][k]]
+                    for k in DP_LOSSES})
+        print(f"[train-dp] (b) two gloo ranks on one card vs one process, "
+              f"dedup_d_hr={dedup} (tolerances: losses {DP_LOSS_ATOL}, "
+              f"parameters and statistics {DP_PARAM_ATOL}); (c) the "
+              f"per-rank control: " + json.dumps(b[f"dedup{dedup}"]),
+              flush=True)
+        if not (loss <= DP_LOSS_ATOL and param <= DP_PARAM_ATOL):
+            fail(f"two ranks differ from one process (dedup_d_hr={dedup}):"
+                 f" losses {loss}, parameters {param}")
+        if not same:
+            fail(f"the two ranks ended unequal (dedup_d_hr={dedup})")
+        if c_loss <= DP_LOSS_ATOL and c_param <= DP_PARAM_ATOL:
+            fail(f"the per-rank control is within the tolerances "
+                 f"(dedup_d_hr={dedup}): the check cannot fail")
+    if any(r["launches"].get("dense_block", 0) < 2 * n_fwd
+           or not r["launches"].get("dense_block_bwd") for r in ranks):
+        fail(f"a rank did not launch the dense-block kernels: "
+             f"{b['launches_per_rank']}")
+    res["b"] = b
+    print("[train-dp] (b) " + json.dumps(b), flush=True)
+    return res
+
+
+def profile_dir_phase():
+    """``cli train --profile_dir D``, one warmup and one GAN step at a
+    depth of 2 blocks: a trace in D that names the dense-block kernels
+    (forward on the Hopper tile, and the backward's)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        pdir = os.path.join(tmp, "trace")
+        t0 = time.perf_counter()
+        rc, _, totals = cli_train_recorded(
+            ["train", "--preset", "train_gan_dfm", "--residual_blocks",
+             "2", "--dataset_dir", os.path.join(tmp, "no_dataset"),
+             "--steps", "2", "--warmup_batches", "1", "--checkpoint_dir",
+             os.path.join(tmp, "ck"), "--profile_dir", pdir])
+        secs = time.perf_counter() - t0
+        traces = [n for n in os.listdir(pdir) if n.endswith(".json")] \
+            if os.path.isdir(pdir) else []
+        if rc != 0 or len(traces) != 1:
+            fail(f"cli train --profile_dir: rc {rc}, traces {traces}")
+        path = os.path.join(pdir, traces[0])
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = {}
+        for e in events:
+            if e.get("cat") == "kernel":
+                kernels[e["name"]] = kernels.get(e["name"], 0.0) \
+                    + e.get("dur", 0) / 1e3
+        named = {k: sum(t for n, t in kernels.items() if k in n)
+                 for k in ("conv3x3_wgmma", "bwd_prep", "wgrad_wgmma",
+                           "bwd_reduce")}
+        res = dict(s=secs, trace_mb=os.path.getsize(path) / 1e6,
+                   kernel_names=len(kernels), dense_block_kernels_ms=named,
+                   launches=totals)
+    print("[profile-dir] " + json.dumps(res), flush=True)
+    if not all(named.values()):
+        fail(f"the trace does not name every dense-block kernel: {named}")
+    return res
+
+
+def build_cache_phase():
+    """``cli upscale --conv_impl pallas --compile_cache_dir <fresh>`` at a
+    depth of 2 blocks, twice, each a process of its own with an ``nvcc``
+    on its PATH that logs each start: the first builds conv3x3's library
+    into the directory, the second starts no nvcc."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    import super_resolution_tpu_torch.models.rrdb as rrdb
+    from super_resolution_tpu_torch import build
+    from super_resolution_tpu_torch.config import GeneratorConfig
+
+    real = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    with tempfile.TemporaryDirectory() as tmp:
+        shim, log = os.path.join(tmp, "bin"), os.path.join(tmp, "nvcc.log")
+        os.makedirs(shim)
+        with open(os.path.join(shim, "nvcc"), "w") as f:
+            f.write(f'#!/bin/sh\necho "$*" >> {log}\nexec {real} "$@"\n')
+        os.chmod(os.path.join(shim, "nvcc"), 0o755)
+        pth, src = os.path.join(tmp, "g.pth"), os.path.join(tmp, "lr.png")
+        torch.save(rrdb.RRDBNet(GeneratorConfig(n_blocks=2, init=SEED_INIT),
+                                torch.Generator().manual_seed(0))
+                   .state_dict(), pth)
+        Image.fromarray(np.random.default_rng(3).integers(
+            0, 256, (96, 128, 3), dtype=np.uint8)).save(src)
+        cache = os.path.join(tmp, "cache")
+        env = dict(os.environ, PYTHONPATH=HERE,
+                   PATH=shim + os.pathsep + os.environ.get("PATH", ""))
+        runs = []
+        for i in range(2):
+            t0 = time.perf_counter()
+            p = subprocess.run(
+                [sys.executable, "-m", "super_resolution_tpu_torch.cli",
+                 "upscale", "--image", src, "--checkpoint", pth, "--out",
+                 os.path.join(tmp, f"sr{i}.png"), "--conv_impl", "pallas",
+                 "--compile_cache_dir", cache], env=env, cwd=tmp,
+                capture_output=True, text=True, timeout=600)
+            nvcc = open(log).read().splitlines() if os.path.exists(log) \
+                else []
+            runs.append(dict(rc=p.returncode,
+                             s=time.perf_counter() - t0, nvcc_starts=len(nvcc),
+                             cache=sorted(os.listdir(cache))
+                             if os.path.isdir(cache) else []))
+            if p.returncode != 0:
+                print(p.stdout[-3000:] + p.stderr[-3000:], flush=True)
+        lib = os.path.basename(build.library_path("conv3x3"))
+    res = dict(first=runs[0], second=runs[1], library=lib)
+    print("[build-cache] " + json.dumps(res), flush=True)
+    if runs[0]["rc"] != 0 or runs[1]["rc"] != 0:
+        fail(f"cli upscale --compile_cache_dir failed: {res}")
+    if runs[0]["nvcc_starts"] != 1 or lib not in runs[0]["cache"]:
+        fail(f"the first call did not build conv3x3 into the cache: {res}")
+    if runs[1]["nvcc_starts"] != 1:
+        fail(f"the second call started nvcc: {res}")
+    return res
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "super_resolution_tpu_torch")):
         print("chip_smoke: the super_resolution_tpu_torch package is not "
@@ -2631,12 +3206,27 @@ def main() -> int:
     int8 = int8_phase()
     contract_phase()
     tools = tools_phase()
+    t_new = time.perf_counter()
+    poly = polyphase_phase()
+    train_dp = train_dp_phase()
+    profile_dir_phase()
+    build_cache_phase()
+    print(f"[polyphase+train-dp+profile-dir+build-cache] the four phases "
+          f"took {time.perf_counter() - t_new:.1f} s", flush=True)
     print("[impls] lax: " + json.dumps({
         "forward": impls["lax"], "cli": impls["cli_lax"],
         "train_pallas_on_lax": lax_train}), flush=True)
 
     flag, bwd = kern["flagship"], kern_bwd["train"]
     serve_launches = serve["upscale_launches"] + serve["serve_launches"]
+    # the data-parallel path: cli train with one NCCL rank, then the two
+    # gloo ranks' steps, each counted from 0
+    dp_runs = [train_dp["a"]["launches"],
+               *train_dp["b"]["launches_per_rank"]]
+    dp_fwd = sum(r.get("dense_block", 0) for r in dp_runs)
+    dp_bwd = sum(r.get("dense_block_bwd", 0) for r in dp_runs)
+    poly_conv = {impl: poly[impl]["launches"].get("conv3x3", 0)
+                 for impl in ("pallas_cf_tail", "pallas")}
     print(json.dumps({"kernels": [{
         "name": "dense_block",
         "route": "cuda",
@@ -2645,10 +3235,11 @@ def main() -> int:
         # the user's entry points, each counted from 0: cli upscale and
         # cli serve --once, then cli train, then cli eval
         "launches": serve_launches + train["fwd_launches"]
-        + evals["launches"],
+        + evals["launches"] + dp_fwd,
         "launches_serve_path": serve_launches,
         "launches_train_path": train["fwd_launches"],
         "launches_eval_path": evals["launches"],
+        "launches_train_dp_path": dp_fwd,
         "max_abs_err": flag["max_abs_err"],
         "ms": flag["kernel_ms"],
         "plain_ms": flag["plain_ms"],
@@ -2661,7 +3252,9 @@ def main() -> int:
         "route": "cuda",
         "source": "super_resolution_tpu_torch/csrc/dense_block_bwd.cu",
         "replaces": REPLACES_BWD,
-        "launches": train["bwd_launches"],        # cli train
+        # cli train, then the data-parallel path
+        "launches": train["bwd_launches"] + dp_bwd,
+        "launches_train_dp_path": dp_bwd,
         "launches_per_block": bwd["launches"],
         "max_abs_err": bwd["max_abs_err"],
         "ms": bwd["kernel_ms"],
@@ -2677,9 +3270,12 @@ def main() -> int:
         "replaces": REPLACES_CONV,
         # cli upscale --conv_impl pallas_cf_tail and pallas, then cli
         # train --conv_impl pallas_cf_tail, each counted from 0
+        # and one polyphase forward under each of the two impls
         "launches": (impls["cli_pallas_cf_tail"]["launches"]["conv3x3"]
                      + impls["cli_pallas"]["launches"]["conv3x3"]
-                     + tail_train["totals"]["conv3x3"]),
+                     + tail_train["totals"]["conv3x3"]
+                     + sum(poly_conv.values())),
+        "launches_polyphase_forward": poly_conv,
         "launches_upscale_pallas_cf_tail":
             impls["cli_pallas_cf_tail"]["launches"]["conv3x3"],
         "launches_upscale_pallas": impls["cli_pallas"]["launches"]["conv3x3"],

@@ -2,9 +2,14 @@
 
 Each source in ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, and loaded with ``ctypes``.
-Libraries go to ``_build/`` inside the package (listed in .gitignore),
-named by a hash of the source, the shared headers and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.  Nothing is built when a
+Libraries go to ``BUILD_DIR``, by default ``_build/`` inside the
+package (listed in .gitignore), named by a hash of the source, the
+shared headers and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.  That directory is the port's
+compile cache, the counterpart of the JAX package's XLA cache
+(``compile_cache.py``): :func:`set_build_dir` points it elsewhere (the
+CLI's ``--compile_cache_dir``), :func:`temporary_build_dir` at a
+directory removed at exit (``--no_compile_cache``).  Nothing is built when a
 module is imported: the first launch builds what it needs.  ``ptxas -v``
 reports each kernel's registers, shared memory and spills into a log
 beside the library; :func:`ptxas_report` reads it.
@@ -12,12 +17,14 @@ beside the library; :func:`ptxas_report` reads it.
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import os
 import re
 import shutil
 import subprocess
+import tempfile
 import threading
 from typing import Dict, List
 
@@ -38,6 +45,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+
+
+def set_build_dir(path: str) -> str:
+    """Build and load the libraries under ``path`` from now on (a
+    library already loaded stays loaded); returns the absolute path."""
+    global BUILD_DIR
+    with _lock:
+        BUILD_DIR = os.path.abspath(os.path.expanduser(path))
+    return BUILD_DIR
+
+
+def temporary_build_dir() -> str:
+    """Build into a fresh temporary directory, removed when the process
+    exits (no cache across runs)."""
+    path = tempfile.mkdtemp(prefix="sr_torch_build_")
+    atexit.register(shutil.rmtree, path, ignore_errors=True)
+    return set_build_dir(path)
 
 
 def _nvcc() -> str:

@@ -20,9 +20,19 @@ same flags, running on the card.
 every kernel's plain version on the CPU.  Checkpoints are torch ``.pth``
 files in any of the three naming families, or a checkpoint directory
 written by ``train`` (EMA maturity-gated); orbax directories are the JAX
-package's format and are refused.  ``--data_parallel`` above 1,
-``--multihost``, ``--loader grain`` and ``--profile_dir`` are accepted
-by the parser and raise: they are not ported yet (ROADMAP.md).
+package's format and are refused.  ``--data_parallel N`` trains on N
+devices, one process (rank) per device spawned from the one command,
+with the JAX package's global-batch semantics; with ``--multihost
+--coordinator host:port --num_processes H --process_id i`` host i of H
+starts its N / H ranks, which meet at the coordinator (N is the global
+rank count).  ``upscale``, ``serve`` and ``eval`` split each frame's
+tiles over N devices.  N devices must exist: ranks are never put two to
+a card.  ``--profile_dir D`` writes a ``torch.profiler`` trace of
+training (rank 0's) into D.  ``--compile_cache_dir D`` builds and keeps
+the CUDA kernels' libraries in D (default: the package's ``_build/``),
+``--no_compile_cache`` builds them into a temporary directory removed
+at exit.  ``--loader grain`` is accepted by the parser and raises: the
+grain loader is not ported yet (ROADMAP.md).
 ``--conv_impl`` picks the conv path by the JAX package's names (``auto``
 = ``pallas_cf``, ``pallas_cf_tail``, ``pallas``, ``pallas_fused``, and
 ``lax``: cuDNN, no kernel of the port) for ``upscale``, ``serve``,
@@ -336,6 +346,60 @@ def _interp(args, cfg) -> int:
     return 0
 
 
+def _train_rank(device, cfg, train_kw: dict, profile_dir) -> None:
+    """One rank of ``cli train`` (the whole run without data
+    parallelism); rank 0 alone traces."""
+    from super_resolution_tpu_torch.metrics import profiler_trace
+    from super_resolution_tpu_torch.parallel import dp
+    from super_resolution_tpu_torch.train import train
+
+    with profiler_trace(profile_dir if dp.rank() == 0 else None):
+        train(cfg, device=device, **train_kw)
+
+
+def _train(args, cfg) -> int:
+    """``cli train``: in this process, or as ``--data_parallel`` ranks
+    on this host's devices, or as this host's ranks of a multi-host
+    group."""
+    from super_resolution_tpu_torch.device import resolve_device
+    from super_resolution_tpu_torch.parallel import dp, multihost
+
+    if args.loader == "grain":
+        raise NotImplementedError(
+            "--loader grain is not ported yet: the grain loader is "
+            "ROADMAP.md Queue 1 item 7")
+    device = resolve_device(args.device)
+    rank_args = (cfg, dict(
+        total_steps=args.steps, resume=args.resume,
+        init_g_from=args.init_g_from, log_dir=args.log_dir,
+        sample_dir=args.sample_dir, eval_dir=args.eval_dir,
+        eval_interval=args.eval_interval), args.profile_dir)
+    if args.multihost:
+        if args.coordinator is None or args.num_processes is None \
+                or args.process_id is None:
+            raise SystemExit("--multihost needs --coordinator host:port, "
+                             "--num_processes and --process_id")
+        multihost.launch(_train_rank, rank_args, args.coordinator,
+                         args.num_processes, args.process_id,
+                         cfg.data_parallel, device.type)
+    elif cfg.data_parallel > 1:
+        dp.launch(_train_rank, rank_args,
+                  dp.devices_for(cfg.data_parallel, device))
+    else:
+        _train_rank(device, *rank_args)
+    return 0
+
+
+def _inference_devices(cfg, device):
+    """The devices a frame's tiles are split over (``--data_parallel``
+    above 1), or None for ``device`` alone."""
+    if cfg.data_parallel <= 1:
+        return None
+    from super_resolution_tpu_torch.parallel import dp
+
+    return dp.devices_for(cfg.data_parallel, device)
+
+
 def _halo_arg(v: str):
     """argparse type for ``--halo``: an int or the literal 'auto'."""
     if v.lower() == "auto":
@@ -424,19 +488,21 @@ def _add_common(p: argparse.ArgumentParser):
                         "pallas_fused on lax (no backward)")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--data_parallel", type=int, default=None,
-                   help="DP-of-tiles over this many devices (the port "
-                        "runs one device until DDP is ported)")
+                   help="devices to run on: training ranks (the global "
+                        "count under --multihost), or the devices a "
+                        "frame's tiles are split over")
     p.add_argument("--vgg_weights", default=None,
                    help="npz from tools/convert_vgg.py (training's "
                         "perceptual loss)")
     p.add_argument("--lenient_import", action="store_true",
                    help="ignore unmapped keys when importing a torch .pth")
     p.add_argument("--compile_cache_dir", default=None,
-                   help="accepted for command-line compatibility: the "
-                        "port runs eagerly and builds its kernels into "
-                        "the package's _build/ directory")
+                   help="where the CUDA kernels' libraries are built and "
+                        "kept across runs (default: the package's "
+                        "_build/)")
     p.add_argument("--no_compile_cache", action="store_true",
-                   help="accepted for command-line compatibility")
+                   help="build the kernels into a temporary directory "
+                        "removed at exit")
     p.add_argument("--device", default="cuda",
                    help="where the model runs: 'cuda' (default) or 'cpu'")
 
@@ -489,12 +555,17 @@ def main(argv=None):
                    help="validation dir for periodic in-loop eval")
     t.add_argument("--eval_interval", type=int, default=None)
     t.add_argument("--profile_dir", default=None,
-                   help="profiler trace output dir (not ported yet)")
+                   help="torch.profiler trace output dir (rank 0's)")
     t.add_argument("--multihost", action="store_true",
-                   help="multi-host training (not ported yet)")
-    t.add_argument("--coordinator", default=None)
-    t.add_argument("--num_processes", type=int, default=None)
-    t.add_argument("--process_id", type=int, default=None)
+                   help="multi-host training: this host's ranks join "
+                        "the others' at --coordinator")
+    t.add_argument("--coordinator", default=None,
+                   help="host:port every rank can reach (rank 0, on "
+                        "--process_id 0, serves it)")
+    t.add_argument("--num_processes", type=int, default=None,
+                   help="number of hosts")
+    t.add_argument("--process_id", type=int, default=None,
+                   help="this host's index")
     t.add_argument("--loader", choices=("threads", "grain"),
                    default="threads",
                    help="input pipeline backend ('grain' is not ported "
@@ -616,26 +687,16 @@ def main(argv=None):
         # a sweep or a stamp it would be silently skipped
         parser.error("--val_dir needs a halo to measure at: drop "
                      "--no-halo_sweep, or pass --stamp_halo N")
+    from super_resolution_tpu_torch import build
+
+    if args.no_compile_cache:
+        build.temporary_build_dir()
+    elif args.compile_cache_dir:
+        build.set_build_dir(args.compile_cache_dir)
     cfg = _build_cfg(args)
-    if cfg.data_parallel > 1:
-        raise NotImplementedError(
-            "--data_parallel > 1 needs DDP, which is not ported yet "
-            "(ROADMAP.md Queue 1)")
 
     if args.cmd == "train":
-        for flag, on in (("--multihost", args.multihost),
-                         ("--loader grain", args.loader == "grain"),
-                         ("--profile_dir", bool(args.profile_dir))):
-            if on:
-                raise NotImplementedError(
-                    f"{flag} is not ported yet (ROADMAP.md)")
-        from super_resolution_tpu_torch.train import train
-
-        train(cfg, total_steps=args.steps, resume=args.resume,
-              init_g_from=args.init_g_from, log_dir=args.log_dir,
-              sample_dir=args.sample_dir, eval_dir=args.eval_dir,
-              eval_interval=args.eval_interval, device=args.device)
-        return 0
+        return _train(args, cfg)
 
     if args.cmd == "eval":
         from super_resolution_tpu_torch.device import resolve_device
@@ -644,6 +705,7 @@ def main(argv=None):
         )
 
         device = resolve_device(args.device)
+        devices = _inference_devices(cfg, device)
         g_sd, cfg = _load_generator(args, cfg)
         tile, tile_w, bucket_h = _resolve_tile_geometry(args)
         out = evaluate_directory(cfg, g_sd, args.dataset_dir,
@@ -652,7 +714,8 @@ def main(argv=None):
                                  tile_batch=args.tile_batch,
                                  max_images=args.max_images,
                                  use_self_ensemble=args.self_ensemble,
-                                 lr_dir=args.lr_dir, device=device)
+                                 lr_dir=args.lr_dir, device=device,
+                                 devices=devices)
         if args.json:
             print(json.dumps(out))
         else:
@@ -680,8 +743,10 @@ def main(argv=None):
     from super_resolution_tpu_torch.train.steps import make_infer_fn
 
     device = resolve_device(args.device)
+    devices = _inference_devices(cfg, device)
     g_sd, cfg = _load_generator(args, cfg)
-    infer = make_infer_fn(cfg, g_sd, device)
+    infer = make_infer_fn(cfg, g_sd, device) if devices is None \
+        else [make_infer_fn(cfg, g_sd, d) for d in devices]
     mean, std = cfg.data.normalize_mean, cfg.data.normalize_std
     scale = cfg.generator.scale
     halo = _resolve_halo(args)
@@ -690,7 +755,7 @@ def main(argv=None):
     def up(lrn):
         return tiled_upscale(infer, lrn, scale=scale, tile=tile, halo=halo,
                              tile_w=tile_w, bucket_h=bucket_h,
-                             tile_batch=args.tile_batch)
+                             tile_batch=args.tile_batch, devices=devices)
 
     def upscale_u8(lr_u8: np.ndarray, ensemble: bool = False) -> np.ndarray:
         # ship uint8 and convert on the device: a quarter of the bytes.

@@ -3,8 +3,8 @@
 The dataclasses are the JAX package's (``super_resolution_tpu/
 config.py``) field for field, so configs of the two packages compare
 equal, and ``preset`` knows its presets by name.  ``train_gan_dp8``
-(``data_parallel=8``) needs DDP, which is not ported yet: asking for it
-raises.
+(``data_parallel=8``) trains on eight devices, one rank each
+(:mod:`parallel.dp`).
 
 ``conv_impl`` picks the conv path of the JAX package's name
 (:func:`resolve_conv_impl`): ``"auto"`` is ``"pallas_cf"``, the JAX
@@ -57,7 +57,7 @@ class GeneratorConfig:
     upsampler: str = "nearest_conv"   # "nearest_conv" | "pixelshuffle"
     init: str = "msra_scaled"         # "msra_scaled" (×0.1) | "torch_default"
     conv_impl: str = "auto"
-    tail_up: str = "naive"            # "polyphase" is not ported yet
+    tail_up: str = "naive"            # "naive" | "polyphase"
 
     def __post_init__(self):
         if self.conv_impl not in CONV_IMPLS:
@@ -214,10 +214,6 @@ PRESETS = ("infer_single", "pretrain_psnr", "train_gan", "train_gan_dfm",
 
 def preset(name: str) -> TrainConfig:
     """The JAX package's presets by name."""
-    if name == "train_gan_dp8":
-        raise NotImplementedError(
-            "preset 'train_gan_dp8' (data_parallel=8) is not ported yet "
-            "(ROADMAP.md): the port trains on one device until DDP lands")
     presets = {
         "infer_single": TrainConfig(compute_dtype="float32"),
         "pretrain_psnr": TrainConfig(
@@ -234,6 +230,7 @@ def preset(name: str) -> TrainConfig:
             optim_d=OptimConfig(lr=3e-5),
         ),
         "infer_tiled": TrainConfig(compute_dtype="bfloat16"),
+        "train_gan_dp8": TrainConfig(data_parallel=8),
     }
     if name not in presets:
         raise KeyError(f"unknown preset {name!r}; have {sorted(PRESETS)}")

@@ -8,7 +8,10 @@ output; ``torch.round`` rounds half to even like ``jnp.round``.
 
 The flip/rot decisions come from an explicit ``torch.Generator``, whose
 stream is not ``jax.random``'s: the same seed draws other decisions, so
-tests inject them (``decisions=``)."""
+tests inject them (``decisions=``).  Under data parallelism every rank
+draws the decisions of the whole global batch from its identically
+seeded generator and keeps its own rows (``part=``), so the global
+batch is augmented as one process would augment it."""
 
 from __future__ import annotations
 
@@ -66,12 +69,16 @@ def preprocess_batch(batch, cfg: DataConfig,
                      generator: Optional[torch.Generator] = None,
                      augment: Optional[bool] = None,
                      decisions: Optional[Decisions] = None,
+                     part: Tuple[int, int] = (0, 1),
                      ) -> Dict[str, torch.Tensor]:
     """uint8 batch -> normalised ``{"lr", "hr"}`` training pair on the
     batch's device.  ``batch`` is an HR tensor (B, H, W, 3), from which
     LR is bicubic-synthesised, or a paired ``{"hr", "lr"}`` dict, whose
     two resolutions get the same per-sample flip/rot decisions.  The
-    decisions are ``decisions`` if given, else drawn from ``generator``."""
+    decisions are ``decisions`` if given, else drawn from ``generator``:
+    with ``part=(index, count)`` the batch is rows [index·B, (index+1)·B)
+    of a global batch of count·B rows, whose decisions are drawn and
+    these rows' kept."""
     do_aug = cfg.augment if augment is None else augment
     paired = isinstance(batch, dict)
     hr = (batch["hr"] if paired else batch).float() / 255.0
@@ -79,7 +86,10 @@ def preprocess_batch(batch, cfg: DataConfig,
         if generator is None:
             raise ValueError("augmentation needs a torch.Generator or "
                              "explicit decisions")
-        decisions = draw_decisions(generator, hr.shape[0])
+        index, count = part
+        b = hr.shape[0]
+        decisions = tuple(d[index * b:(index + 1) * b]
+                          for d in draw_decisions(generator, b * count))
     if do_aug:
         hr = augment_batch(hr, decisions)
     if paired:

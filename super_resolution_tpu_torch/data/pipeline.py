@@ -119,8 +119,8 @@ class PatchLoader:
     single-worker path.  :meth:`state_dict` therefore captures exact
     resume state (the next step to yield) even at the default of 4
     workers.  ``part=(index, count)`` yields rows
-    [index·B/count, (index+1)·B/count) of the global batch; the port
-    trains on one device and uses (0, 1).
+    [index·B/count, (index+1)·B/count) of the global batch: rank
+    ``index`` of ``count`` under data parallelism.
     """
 
     def __init__(self, cfg: DataConfig, files: Optional[Sequence[str]] = None,

@@ -3,9 +3,12 @@
 
 Total generator loss: ``lambda_percep * L_percep + lambda_adv * L_RaGAN +
 lambda_pixel * L1``.  ``detach()`` stands where the JAX code has
-``stop_gradient``.  The batch means of the relativistic losses are over
-axis 0; the port runs one device, so there is no mesh axis to average
-over.
+``stop_gradient``.  The batch means of the relativistic losses and the
+feature-matching normaliser are over the global batch: under data
+parallelism the local means are averaged over the ranks
+(:func:`parallel.dp.global_mean`, differentiable), as the JAX package's
+sharded step makes them mesh-global.  Every other mean here is a rank's
+own: the averaged gradients and logged losses make it global.
 """
 
 from __future__ import annotations
@@ -15,16 +18,25 @@ from typing import Callable, Sequence
 import torch
 import torch.nn.functional as F
 
+from super_resolution_tpu_torch.parallel.dp import global_mean
+
 
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return (pred - target).abs().mean()
 
 
+def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return ((pred - target) ** 2).mean()
+
+
+def psnr_of_mse(mse_: torch.Tensor, max_val: float = 1.0) -> torch.Tensor:
+    return 10.0 * torch.log10(max_val ** 2 / mse_.clamp_min(1e-12))
+
+
 def psnr(pred: torch.Tensor, target: torch.Tensor,
          max_val: float = 1.0) -> torch.Tensor:
     """Peak signal-to-noise ratio in dB."""
-    mse = ((pred - target) ** 2).mean()
-    return 10.0 * torch.log10(max_val ** 2 / mse.clamp_min(1e-12))
+    return psnr_of_mse(mse(pred, target), max_val)
 
 
 def _bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
@@ -35,7 +47,7 @@ def _bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
 
 
 def _batch_mean(logits: torch.Tensor) -> torch.Tensor:
-    return logits.mean(0, keepdim=True)
+    return global_mean(logits.mean(0, keepdim=True))
 
 
 def ragan_generator_loss(real_logits: torch.Tensor,
@@ -82,5 +94,6 @@ def feature_matching_loss(feats_pred: Sequence[torch.Tensor],
     total = 0.0
     for fp, ft in zip(feats_pred, feats_target):
         ft = ft.detach()
-        total = total + l1_loss(fp, ft) / (ft.abs().mean() + 1e-6)
+        total = total + l1_loss(fp, ft) / (global_mean(ft.abs().mean())
+                                           + 1e-6)
     return total / len(feats_pred)

@@ -1,7 +1,7 @@
 """Observability (the JAX package's ``metrics.py``): the image metrics
 of eval (PSNR and SSIM, RGB and Y channel), windowed scalar averaging
-with JSONL, stdout and optional tensorboard sinks, and the throughput
-meter.
+with JSONL, stdout and optional tensorboard sinks, the throughput
+meter and the profiler trace.
 
 Images keep the JAX package's layout, ``(..., H, W, C)`` in [0, 1].
 :func:`ssim` takes its local moments as E[x²] − μ², which cancels: under
@@ -13,8 +13,10 @@ gives SSIM above 1.  So its Gaussian filter runs inside
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import socket
 import time
 from typing import Dict, Optional
 
@@ -163,6 +165,33 @@ class MetricLogger:
             self._file.close()
         if self._tb is not None:
             self._tb.close()
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: Optional[str]):
+    """``torch.profiler`` over the body, CPU and (where there is a card)
+    CUDA activities, its Chrome trace written into ``log_dir`` as
+    ``<host>_<pid>.pt.trace.json`` (the JAX package's
+    ``jax.profiler`` trace); a no-op for ``None``."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"{socket.gethostname()}_{os.getpid()}"
+                                 ".pt.trace.json")
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(path)
+        print(f"[profile] trace written to {path}", flush=True)
 
 
 class Throughput:

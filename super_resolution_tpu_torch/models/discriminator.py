@@ -14,7 +14,11 @@ unbiased one), takes the statistics in float32 whatever the compute
 dtype, as ``E[x^2] - E[x]^2`` clipped at 0, and its momentum 0.9 is
 torch's 0.1.  ``update_stats=False`` normalises with the batch
 statistics without touching the running ones — the generator step's
-forwards, whose statistics the JAX step throws away.
+forwards, whose statistics the JAX step throws away.  The batch
+statistics are the global batch's: under data parallelism the local
+means of x and x² are averaged over the ranks with gradient
+(:func:`parallel.dp.global_mean`), so every rank normalises alike and
+its running statistics update alike.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import torch.nn.functional as F
 from super_resolution_tpu_torch.config import DiscriminatorConfig
 from super_resolution_tpu_torch.device import no_tf32
 from super_resolution_tpu_torch.models.initializers import conv_init_
+from super_resolution_tpu_torch.parallel import dp
 
 
 class BatchNorm(nn.Module):
@@ -47,8 +52,10 @@ class BatchNorm(nn.Module):
                 update_stats: bool = True) -> torch.Tensor:
         x32 = x.float()
         if train:
-            mean = x32.mean((0, 2, 3))
-            var = ((x32 * x32).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            mean, sq = x32.mean((0, 2, 3)), (x32 * x32).mean((0, 2, 3))
+            if dp.active():     # one all-reduce for both
+                mean, sq = dp.global_mean(torch.stack([mean, sq])).unbind()
+            var = (sq - mean * mean).clamp_min(0.0)
             if update_stats:
                 with torch.no_grad():
                     m = self.momentum

@@ -35,6 +35,14 @@ the conv path as the JAX package's does:
   dense block conv by conv in the JAX order (the conv, LeakyReLU in the
   compute dtype, the concat, the residual in the compute dtype).
 
+``cfg.tail_up="polyphase"`` (with the ``nearest_conv`` upsampler) runs
+each nearest-×2 + ``conv_up{u}`` as four 2×2 convs on the small plane
+(:mod:`ops.upsample_conv`, ``F.conv2d``) followed by LeakyReLU in the
+compute dtype, under every impl, as the JAX package bypasses its tail
+conv paths there: the single-conv kernel then runs only ``conv_body``
+and ``conv_hr`` under ``pallas_cf_tail``, and every conv but the two
+upconvs under ``pallas``.  The parameters do not change.
+
 On CUDA tensors the kernels launch; on CPU tensors their plain versions
 run.  Parameters are float32.  :meth:`RRDBNet.prepare` casts them to
 the compute dtype and packs the kernels' weights once, after the
@@ -76,6 +84,10 @@ from super_resolution_tpu_torch.ops.dense_block import (
     fused_dense_block,
     pack_weight,
 )
+from super_resolution_tpu_torch.ops.upsample_conv import (
+    nearest_up_conv_nchw,
+    phase_kernels,
+)
 from super_resolution_tpu_torch.ops.shuffle import (
     nearest_upsample,
     nearest_upsample_nhwc,
@@ -101,18 +113,23 @@ class Conv3x3(nn.Module):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, 3, 3))
         self.bias = nn.Parameter(torch.empty(cout))
-        self._w = self._b = self._wp = self._bf = self._dtype = None
+        self._w = self._b = self._wp = self._bf = self._pk = None
+        self._dtype = None
 
-    def prepare(self, dtype: torch.dtype, live: bool = False) -> None:
+    def prepare(self, dtype: torch.dtype, live: bool = False,
+                phases: bool = False) -> None:
         """Cache the weights cast for ``F.conv2d`` and packed for the
-        kernel; ``live`` leaves both to every forward."""
+        kernel, and with ``phases`` the four 2×2 kernels of
+        :meth:`up`; ``live`` leaves all of it to every forward."""
         self._dtype = dtype
-        self._w = self._b = self._wp = self._bf = None
+        self._w = self._b = self._wp = self._bf = self._pk = None
         if not live:
             w = self.weight.detach()
             self._w, self._b = w.to(dtype), self.bias.detach().to(dtype)
             self._wp = pack_weight(w).to(dtype)
             self._bf = self.bias.detach().float().contiguous()
+            if phases:
+                self._pk = phase_kernels(self._w)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self._w is None:     # live: cast inside the graph
@@ -132,6 +149,16 @@ class Conv3x3(nn.Module):
         """The kernel on NHWC ``x``, no activation (``pallas``)."""
         return packed_conv3x3(x, self._wp, self._bf, apply_act=False,
                               out_dtype=self._dtype)
+
+    def up(self, x: torch.Tensor) -> torch.Tensor:
+        """Nearest-×2 upsample then this conv, as four 2×2 convs on the
+        small plane (:mod:`ops.upsample_conv`), on NCHW ``x`` in its
+        memory format; live: the 3×3 weight is cast and the 2×2 kernels
+        formed inside the graph."""
+        if self._w is None:
+            return nearest_up_conv_nchw(x, self.weight.to(self._dtype),
+                                        self.bias)
+        return nearest_up_conv_nchw(x, self._w, self._b, self._pk)
 
     def lax_nhwc(self, x: torch.Tensor) -> torch.Tensor:
         """``forward`` on NHWC ``x`` through its channels-last view."""
@@ -250,9 +277,8 @@ class RRDBNet(nn.Module):
     def __init__(self, cfg: GeneratorConfig = GeneratorConfig(),
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.tail_up != "naive":
-            raise NotImplementedError(
-                f"tail_up={cfg.tail_up!r} is not ported yet (ROADMAP.md)")
+        if cfg.tail_up not in ("naive", "polyphase"):
+            raise ValueError(f"unknown tail_up {cfg.tail_up!r}")
         if cfg.upsampler not in ("nearest_conv", "pixelshuffle"):
             raise ValueError(f"unknown upsampler {cfg.upsampler!r}")
         self.cfg = cfg
@@ -271,6 +297,8 @@ class RRDBNet(nn.Module):
         for m in self.modules():
             if isinstance(m, Conv3x3):
                 conv_init_(cfg.init, m.weight, m.bias, generator)
+        self._polyphase = (cfg.tail_up == "polyphase"
+                           and cfg.upsampler == "nearest_conv")
         self._dtype = self._device = None
 
     def prepare(self, dtype: torch.dtype, live: bool = False) -> "RRDBNet":
@@ -287,9 +315,10 @@ class RRDBNet(nn.Module):
         for m in self.modules():
             if isinstance(m, DenseBlock):
                 m.prepare(dtype, live)
-        for m in self.children():
+        for name, m in self.named_children():
             if isinstance(m, Conv3x3):
-                m.prepare(dtype, live)
+                m.prepare(dtype, live, phases=self._polyphase
+                          and name.startswith("conv_up"))
         self._dtype = dtype
         self._device = self.conv_first.weight.device
         return self
@@ -322,7 +351,9 @@ class RRDBNet(nn.Module):
             fea = self.conv_body.cf(trunk, False, slope) + fea
             for u in range(1, cfg.n_upsample + 1):
                 conv = getattr(self, f"conv_up{u}")
-                if cfg.upsampler == "nearest_conv":
+                if self._polyphase:
+                    fea = F.leaky_relu(conv.up(fea), slope)
+                elif cfg.upsampler == "nearest_conv":
                     fea = conv.cf(_on_nhwc(nearest_upsample_nhwc, fea), True,
                                   slope)
                 else:
@@ -332,7 +363,9 @@ class RRDBNet(nn.Module):
         fea = fea + self.conv_body(trunk)
         for u in range(1, cfg.n_upsample + 1):
             conv = getattr(self, f"conv_up{u}")
-            if cfg.upsampler == "nearest_conv":
+            if self._polyphase:
+                fea = F.leaky_relu(conv.up(fea), slope)
+            elif cfg.upsampler == "nearest_conv":
                 fea = F.leaky_relu(conv(nearest_upsample(fea, 2)), slope)
             else:
                 fea = pixel_shuffle(F.leaky_relu(conv(fea), slope), 2)
@@ -350,7 +383,10 @@ class RRDBNet(nn.Module):
         fea = fea + conv(self.conv_body, self.body(fea))
         for u in range(1, cfg.n_upsample + 1):
             up = getattr(self, f"conv_up{u}")
-            if cfg.upsampler == "nearest_conv":
+            if self._polyphase:     # channels-last out: contiguous NHWC
+                fea = F.leaky_relu(up.up(fea.permute(0, 3, 1, 2))
+                                   .permute(0, 2, 3, 1), slope)
+            elif cfg.upsampler == "nearest_conv":
                 fea = F.leaky_relu(conv(up, nearest_upsample_nhwc(fea)),
                                    slope)
             else:

@@ -1,4 +1,5 @@
-"""Tiled inference on one device (data parallelism comes with DDP)."""
+"""Tiled inference (on one device or split over several), and data
+parallel and multi-host training (:mod:`.dp`, :mod:`.multihost`)."""
 
 from super_resolution_tpu_torch.parallel.tiling import (  # noqa: F401
     blend_window,

@@ -1,5 +1,5 @@
 """Overlap-blend tiled inference for arbitrarily large frames (the JAX
-package's ``parallel/tiling.py``, on one device).
+package's ``parallel/tiling.py``), on one device or split over several.
 
     clamp a T×T tile grid INSIDE the frame (stride S = T − 2h, the last
     row/column shifted inward so every tile is a true sub-window) →
@@ -11,12 +11,20 @@ Clamping, not padding, keeps tiling exact at frame borders: an output
 pixel on the frame edge comes only from tiles whose boundary lies on the
 frame edge there, so the generator's own SAME zero padding applies as in
 whole-frame inference.  Frames that fit in one tile run whole.
+
+Over several devices (the JAX package's tiles sharded over its mesh)
+the generator is replicated once per device, each group of
+``tile_batch · N`` tiles is split into N batches of ``tile_batch``, one
+per replica, and the results are blended on the first device.  The
+batches are the single device's, so the frame is the same bit for bit.
+The last group is not padded to full size (the port's kernels take
+every batch size).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -133,8 +141,11 @@ def extract_tiles(lr: torch.Tensor, tile: int, halo: int,
     return tiles, ((tile_h, tile_w), oys, oxs)
 
 
+InferFn = Callable[[torch.Tensor], torch.Tensor]
+
+
 def tiled_upscale(
-        infer_fn: Callable[[torch.Tensor], torch.Tensor],
+        infer_fn: Union[InferFn, Sequence[InferFn]],
         lr: torch.Tensor,
         scale: int = 4,
         tile: int = 128,
@@ -143,16 +154,20 @@ def tiled_upscale(
         tile_w: Optional[int] = None,
         align: Optional[tuple] = None,
         bucket_h: Optional[int] = None,
+        devices: Optional[Sequence[Union[str, torch.device]]] = None,
 ) -> torch.Tensor:
     """Upscale an (H, W, C) normalised LR frame by ×``scale`` on the
     frame's device.
 
     ``infer_fn`` maps a normalised (B, T_h, T_w, C) LR batch to the
     (B, T_h·r, T_w·r, C) SR batch; it sees at most ``tile_batch`` tiles
-    at a time.  ``align=(align_h, align_w)`` clamps the effective tile
-    sizes down to multiples of the alignments when the frame exceeds
-    them; ``bucket_h`` quantises the tile height (:func:`bucket_tile_h`).
-    Frames that fit in one tile run whole."""
+    at a time.  With ``devices`` (N of them), ``infer_fn`` is a sequence
+    of N such functions, the i-th a replica on ``devices[i]``: each
+    group of ``tile_batch · N`` tiles is split over them, and the frame
+    is blended on ``devices[0]``.  ``align=(align_h, align_w)`` clamps
+    the effective tile sizes down to multiples of the alignments when the
+    frame exceeds them; ``bucket_h`` quantises the tile height
+    (:func:`bucket_tile_h`).  Frames that fit in one tile run whole."""
     h, w, _ = lr.shape
     tile_h = tile
     tile_w = tile if tile_w is None else tile_w
@@ -165,13 +180,29 @@ def tiled_upscale(
             tile_h = a_h * (eff_h // a_h)
         if w > a_w and eff_w % a_w and a_w * (eff_w // a_w) > 2 * halo:
             tile_w = a_w * (eff_w // a_w)
+    if devices is None:
+        replicas, devices = [infer_fn], [lr.device]
+    else:
+        replicas, devices = list(infer_fn), [torch.device(d)
+                                             for d in devices]
+        if len(replicas) != len(devices):
+            raise ValueError(f"{len(replicas)} replicas for "
+                             f"{len(devices)} devices")
     if h <= tile_h and w <= tile_w:
-        return infer_fn(lr[None])[0]
+        return replicas[0](lr[None].to(devices[0]))[0]
 
     tiles, ((tile_h, tile_w), oys, oxs) = extract_tiles(lr, tile_h, halo,
                                                         tile_w)
-    sr_tiles = torch.cat([infer_fn(tiles[s:s + tile_batch])
-                          for s in range(0, tiles.shape[0], tile_batch)])
+    batches = [tiles[s:s + tile_batch]
+               for s in range(0, tiles.shape[0], tile_batch)]
+    sr_tiles = []
+    for g in range(0, len(batches), len(replicas)):
+        # every replica's batch is launched before any result is read
+        outs = [fn(b.to(dev, non_blocking=True))
+                for fn, dev, b in zip(replicas, devices,
+                                      batches[g:g + len(replicas)])]
+        sr_tiles += [o.to(devices[0]) for o in outs]
+    sr_tiles = torch.cat(sr_tiles)
     py, px = _weight_profiles(oys, oxs, tile_h, tile_w, halo, scale,
                               h * scale, w * scale)
     ramp_len = 2 * halo * scale

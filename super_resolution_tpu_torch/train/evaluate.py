@@ -10,7 +10,8 @@ kernels; the port's kernels take every tile shape, so it does not.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Optional, Union
+from typing import (Callable, Dict, Iterable, List, Optional, Sequence,
+                    Union)
 
 import numpy as np
 import torch
@@ -41,7 +42,9 @@ def evaluate_directory(
         lr_dir: Optional[str] = None,
         tile_w: Optional[int] = None,
         bucket_h: Optional[int] = None,
-        device: Union[str, torch.device] = "cuda") -> Dict[str, float]:
+        device: Union[str, torch.device] = "cuda",
+        devices: Optional[Sequence[Union[str, torch.device]]] = None,
+        ) -> Dict[str, float]:
     """Evaluate G over every image in ``val_dir`` on ``device``; returns
     the mean metrics and ``n_images``.
 
@@ -51,14 +54,18 @@ def evaluate_directory(
     ``infer_fn`` is a ready forward of the generator (normalised NHWC LR
     → SR on ``device``, as ``train.steps.make_infer_fn`` builds); when
     it is given ``g_params`` is not read.  Without it the forward is
-    built from ``g_params`` (the port's state dict) and ``cfg``."""
+    built from ``g_params`` (the port's state dict) and ``cfg``.  With
+    ``devices`` (the first is ``device``) the tiles of a frame are split
+    over one replica per device (``parallel.tiling.tiled_upscale``), and
+    ``infer_fn``, if given, is the sequence of the replicas."""
     device = resolve_device(device)
     scale = cfg.data.scale
     mean, std = cfg.data.normalize_mean, cfg.data.normalize_std
     if infer_fn is None:
         from super_resolution_tpu_torch.train.steps import make_infer_fn
 
-        infer_fn = make_infer_fn(cfg, g_params, device)
+        infer_fn = make_infer_fn(cfg, g_params, device) if devices is None \
+            else [make_infer_fn(cfg, g_params, d) for d in devices]
 
     lr_for = None
     if lr_dir is not None:
@@ -74,7 +81,7 @@ def evaluate_directory(
     def upscale(img):
         return tiled_upscale(infer_fn, img, scale=scale, tile=tile,
                              halo=halo, tile_batch=tile_batch, tile_w=tile_w,
-                             bucket_h=bucket_h)
+                             bucket_h=bucket_h, devices=devices)
 
     per_image = []
     for path in paths:

@@ -2,9 +2,19 @@
 L1 pretrain -> alternating GAN steps, periodic sampling and
 checkpointing, in-loop eval, metrics, resume.
 
-The warmup/GAN switch is host-side control flow over the two steps.  The
-port trains on one device: the mesh and multi-host branches of the JAX
-loop wait for DDP.
+The warmup/GAN switch is host-side control flow over the two steps.
+
+Under data parallelism :func:`train` runs once per rank, inside the
+process group that :func:`parallel.dp.launch` or
+:func:`parallel.multihost.launch` brings up (``cli train
+--data_parallel N [--multihost ...]``), with ``cfg.data_parallel``
+equal to the group's size.  Each rank loads its rows of the global
+batch (``part=(rank, world)``), starts from rank 0's parameters and
+statistics (broadcast after init, warm start and resume), and steps
+with global-batch semantics (``train/steps.py``), so the ranks stay
+equal.  Rank 0 alone writes the logs, sample grids, in-loop eval and
+checkpoints, each save followed by a barrier; every rank resumes from
+the step directory rank 0 names.
 """
 
 from __future__ import annotations
@@ -16,6 +26,7 @@ import numpy as np
 import torch
 
 from super_resolution_tpu_torch.checkpoint import (
+    latest_step,
     read_ema_provenance,
     restore_checkpoint,
     restore_generator_params,
@@ -33,6 +44,7 @@ from super_resolution_tpu_torch.data import (
 from super_resolution_tpu_torch.device import resolve_device
 from super_resolution_tpu_torch.metrics import MetricLogger, Throughput
 from super_resolution_tpu_torch.ops.resize import bicubic_resize
+from super_resolution_tpu_torch.parallel import dp, multihost
 from super_resolution_tpu_torch.train.state import (
     GANTrainState,
     eval_params,
@@ -98,7 +110,7 @@ def _warm_start(cfg: TrainConfig, state: GANTrainState, init_g_from: str):
                                           ema_decay=cfg.ema_decay)
         print(f"[train] warm-starting G from step-{at} checkpoint")
     set_generator_params(state, sd)
-    if state.g_ema is not None:
+    if state.g_ema is not None and multihost.is_primary():
         # this run's EMA starts from the warm-start weights, not from a
         # random init, so the step-count maturity gate does not apply
         write_ema_provenance(cfg.checkpoint_dir, {
@@ -123,37 +135,53 @@ def train(cfg: TrainConfig,
     with ``__iter__``/``state_dict``/``load_state_dict``), or a default
     :class:`PatchLoader` over ``cfg.data.dataset_dir`` (synthetic patches
     if the directory is absent, which keeps smoke runs dataset-free)."""
-    if cfg.data_parallel > 1:
-        raise NotImplementedError(
-            "data_parallel > 1 needs DDP, which is not ported yet "
-            "(ROADMAP.md)")
+    if cfg.data_parallel != dp.world_size() and (
+            dp.active() or cfg.data_parallel > 1):
+        raise ValueError(
+            f"data_parallel={cfg.data_parallel} but this process is rank "
+            f"{dp.rank()} of {dp.world_size()}: train() runs once per "
+            f"rank, inside the process group of parallel.dp.launch (cli "
+            f"train --data_parallel N)")
+    dp.local_rows(cfg.data.batch_size)     # the global batch must divide
     device = resolve_device(device)
+    primary = multihost.is_primary()
     cfg = training_cfg(cfg)
     total_steps = total_steps if total_steps is not None \
         else cfg.n_epochs * cfg.steps_per_epoch
 
     loader = data_loader
     if data_iter is None and loader is None:
+        # each rank loads its rows of the global batch
+        part = multihost.data_part()
         if os.path.isdir(cfg.data.dataset_dir):
-            loader = PatchLoader(cfg.data, seed=cfg.seed)
+            loader = PatchLoader(cfg.data, seed=cfg.seed, part=part)
         else:
             print(f"[train] dataset dir {cfg.data.dataset_dir!r} missing — "
                   "using synthetic patches")
-            loader = SyntheticPatches(cfg.data, seed=cfg.seed)
+            loader = SyntheticPatches(cfg.data, seed=cfg.seed, part=part)
 
     state = init_state(cfg, device)
     start_step = 0
     if init_g_from and not resume:
         _warm_start(cfg, state, init_g_from)
     if resume:
-        try:
+        # every rank restores the step directory rank 0 sees as newest
+        at = [latest_step(cfg.checkpoint_dir) if primary else None]
+        if dp.active():
+            torch.distributed.broadcast_object_list(at, src=0)
+        if at[0] is None:
+            print("[train] no checkpoint found; starting fresh")
+        else:
             state, data_state, start_step = restore_checkpoint(
-                cfg.checkpoint_dir, state)
+                cfg.checkpoint_dir, state, step=at[0])
             if data_state and loader is not None:
                 loader.load_state_dict(data_state)
             print(f"[train] resumed from step {start_step}")
-        except FileNotFoundError:
-            print("[train] no checkpoint found; starting fresh")
+    # the ranks start equal: rank 0's parameters, statistics and EMA (the
+    # Adam states are equal already: empty, or read from one file)
+    dp.broadcast_([*state.g.parameters(), *state.d.parameters(),
+                   *state.d.buffers(),
+                   *(state.g_ema.values() if state.g_ema else ())])
 
     # is this run's EMA trusted whatever the step count?  True when it
     # was seeded from warm-start weights: this run's init_g_from, or
@@ -183,8 +211,8 @@ def train(cfg: TrainConfig,
     pretrain_step = make_pretrain_step(cfg)
     gan_step = make_gan_step(cfg) if cfg.loss.lambda_adv > 0 else None
 
-    logger = MetricLogger(log_dir)
-    meter = Throughput()
+    logger = MetricLogger(log_dir if primary else None, stdout=primary)
+    meter = Throughput(n_chips=dp.world_size())
     log_every = 50
     n_consumed = 0
 
@@ -207,10 +235,11 @@ def train(cfg: TrainConfig,
                          extra={"mp_per_sec_per_chip":
                                 meter.mp_per_sec_per_chip()})
             meter.reset()
-        if sample_dir and done % cfg.sample_interval == 0:
+        if sample_dir and primary and done % cfg.sample_interval == 0:
             _save_sample_grid(cfg, state, batch, done, sample_dir,
                               logger=logger, ema_warm=ema_warm)
-        if eval_dir and done % (eval_interval or cfg.checkpoint_interval) == 0:
+        if eval_dir and primary \
+                and done % (eval_interval or cfg.checkpoint_interval) == 0:
             from super_resolution_tpu_torch.train.evaluate import (
                 evaluate_directory,
             )
@@ -224,9 +253,11 @@ def train(cfg: TrainConfig,
             logger.log_once(done, "eval",
                             {f"val_{k}": v for k, v in ev.items()})
         if done % cfg.checkpoint_interval == 0 or done == total_steps:
-            data_state = pulled_states.get(n_consumed) if loader is not None \
-                else None
-            save_checkpoint(cfg.checkpoint_dir, state, data_state)
+            if primary:
+                data_state = pulled_states.get(n_consumed) \
+                    if loader is not None else None
+                save_checkpoint(cfg.checkpoint_dir, state, data_state)
+            dp.barrier()        # no rank runs ahead of a partial save
 
     logger.close()
     return state

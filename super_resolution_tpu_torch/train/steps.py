@@ -15,6 +15,13 @@ pretrain step, the alternating G/D GAN step and the inference forward.
   already normalised pair.  Metrics are 0-dim tensors on the device (no
   synchronisation here).  After a step every parameter's ``.grad`` holds
   the gradient that was applied.
+- Global-batch semantics, as in the JAX package: under data
+  parallelism (:mod:`parallel.dp`) a rank's batch is its rows of the
+  global batch, the RaGAN batch means and D's batch statistics are the
+  global batch's (``losses``, ``models.discriminator``), each model's
+  gradients are averaged over the ranks between ``autograd.grad`` and
+  the update, and the metrics are the global values (losses averaged,
+  PSNR of the global MSE, gradient norms of the averaged gradients).
 """
 
 from __future__ import annotations
@@ -33,13 +40,19 @@ from super_resolution_tpu_torch.device import no_tf32, resolve_device
 from super_resolution_tpu_torch.losses import (
     feature_matching_loss,
     l1_loss,
+    mse,
     perceptual_loss,
-    psnr,
+    psnr_of_mse,
     ragan_discriminator_loss,
     ragan_generator_loss,
     ragan_generator_loss_two_sided,
 )
 from super_resolution_tpu_torch.models.rrdb import RRDBNet
+from super_resolution_tpu_torch.parallel.dp import (
+    average_gradients,
+    average_metrics,
+)
+from super_resolution_tpu_torch.parallel.multihost import data_part
 from super_resolution_tpu_torch.train.state import (
     GANTrainState,
     apply_update,
@@ -70,12 +83,22 @@ def training_cfg(cfg: TrainConfig) -> TrainConfig:
         cfg, generator=dataclasses.replace(cfg.generator, conv_impl=impl))
 
 
-def _psnr01(cfg: TrainConfig, sr: torch.Tensor, hr: torch.Tensor):
-    """PSNR in [0, 1] image space (denormalised and clipped), so the
-    training log compares with eval PSNR."""
+def _mse01(cfg: TrainConfig, sr: torch.Tensor, hr: torch.Tensor):
+    """MSE in [0, 1] image space (denormalised and clipped), whose PSNR
+    the training log reports, so that it compares with eval PSNR."""
     mean, std = cfg.data.normalize_mean, cfg.data.normalize_std
     sr01 = denormalize(sr, mean, std).clamp(0.0, 1.0)
-    return psnr(sr01, denormalize(hr, mean, std))
+    return mse(sr01, denormalize(hr, mean, std))
+
+
+def _global_metrics(local: Metrics, **norms) -> Metrics:
+    """The step's metrics over the global batch: the per-rank means
+    averaged over the ranks, PSNR from the global MSE (the ``mse01``
+    entry), the gradient norms as given (of the averaged gradients)."""
+    out = average_metrics(local)
+    out["psnr"] = psnr_of_mse(out.pop("mse01"))
+    out.update(norms)
+    return out
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -91,7 +114,8 @@ def _with_prep(cfg: TrainConfig, core) -> StepFn:
             return core(state, lr, hr)
 
     def step(state: GANTrainState, batch_uint8) -> Metrics:
-        batch = preprocess_batch(batch_uint8, cfg.data, state.aug_rng)
+        batch = preprocess_batch(batch_uint8, cfg.data, state.aug_rng,
+                                 part=data_part())
         return full_f32(state, batch["lr"], batch["hr"])
 
     step.core = full_f32
@@ -106,13 +130,14 @@ def make_pretrain_step(cfg: TrainConfig) -> StepFn:
         g_params = list(state.g.parameters())
         sr = state.g(lr)
         pix = l1_loss(sr, hr)
-        grads = torch.autograd.grad(pix, g_params)
+        grads = average_gradients(torch.autograd.grad(pix, g_params))
         apply_update(state.g_opt, sched_g, grads)
         ema_update(cfg, state.g_ema, state.g)
         state.step += 1
-        return {"loss_pixel": pix.detach(),
-                "psnr": _psnr01(cfg, sr.detach(), hr),
-                "grad_norm_g": global_norm(grads)}
+        return _global_metrics(
+            {"loss_pixel": pix.detach(),
+             "mse01": _mse01(cfg, sr.detach(), hr)},
+            grad_norm_g=global_norm(grads))
 
     return _with_prep(cfg, core)
 
@@ -167,31 +192,32 @@ def make_gan_step(cfg: TrainConfig) -> StepFn:
                                   [f.detach() for f in fr], False)
             (dsr,) = torch.autograd.grad(total, sr_in)
             g_grads = torch.autograd.grad(sr, g_params, dsr)
+            d_grads = average_gradients(d_grads)
+            g_grads = average_gradients(g_grads)
         else:
             # G's gradients: nothing of D(hr) carries a gradient to G
             with torch.no_grad():
                 pr, fr = state.d(hr, train=True, return_features=True,
                                  update_stats=track)
             total, parts = g_loss(state, sr, hr, pr, fr, track)
-            g_grads = torch.autograd.grad(total, g_params)
+            g_grads = average_gradients(torch.autograd.grad(total,
+                                                            g_params))
             # D's gradients on recomputed forwards, SR detached
             pr = state.d(hr, train=True)
             pf_bar = state.d(sr_detached, train=True)
             d_loss = ragan_discriminator_loss(pr, pf_bar)
-            d_grads = torch.autograd.grad(d_loss, d_params)
+            d_grads = average_gradients(torch.autograd.grad(d_loss,
+                                                            d_params))
 
         apply_update(state.g_opt, sched_g, g_grads)
         apply_update(state.d_opt, sched_d, d_grads)
         ema_update(cfg, state.g_ema, state.g)
         state.step += 1
         metrics = {k: v.detach() for k, v in parts.items()}
-        metrics.update({
-            "loss_d": d_loss.detach(),
-            "psnr": _psnr01(cfg, sr_detached, hr),
-            "grad_norm_g": global_norm(g_grads),
-            "grad_norm_d": global_norm(d_grads),
-        })
-        return metrics
+        metrics.update({"loss_d": d_loss.detach(),
+                        "mse01": _mse01(cfg, sr_detached, hr)})
+        return _global_metrics(metrics, grad_norm_g=global_norm(g_grads),
+                               grad_norm_d=global_norm(d_grads))
 
     return _with_prep(cfg, core)
 

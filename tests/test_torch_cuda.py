@@ -2,9 +2,10 @@
 forward (NCHW and NHWC entries) and backward, the single-conv kernel,
 the experiment variants v3–v6 routed to the dense-block kernel and the
 int8 kernel of v8, against their plain versions, their launch counts and
-input checks, and the generator under every conv impl (lax included), a
-training step and the CLI on CUDA.  Marked ``cuda``; each skips where
-torch sees no CUDA device.  On a machine with a card (no JAX needed there):
+input checks, and the generator under every conv impl (lax included)
+with either tail, a training step and the CLI on CUDA.  Marked
+``cuda``; each skips where torch sees no CUDA device.  On a machine
+with a card (no JAX needed there):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda.py
@@ -767,3 +768,34 @@ def test_evaluate_directory_on_the_card_matches_the_cpu(cuda, tmp_path):
     for k in ("psnr_rgb", "psnr_y"):
         assert abs(got[k] - ref[k]) <= 1e-3, k
     assert abs(got["ssim"] - ref["ssim"]) <= 1e-5
+
+
+@pytest.mark.parametrize("impl", ["auto", "pallas_cf_tail", "pallas",
+                                  "pallas_fused", "lax"])
+def test_polyphase_tail_on_the_card(cuda, impl):
+    """``tail_up="polyphase"``: the upconvs leave the single-conv kernel
+    (2 tail launches under pallas_cf_tail, 2 fewer under pallas), and
+    the forward equals the naive tail's with the same weights (float32,
+    TF32 off)."""
+    x = torch.randn(2, 24, 40, 3, generator=torch.Generator()
+                    .manual_seed(2)).to(cuda)
+    sd = rrdb.RRDBNet(GeneratorConfig(n_blocks=2, filters=32, growth=16,
+                                      init="torch_default"),
+                      torch.Generator().manual_seed(1)).state_dict()
+    outs = {}
+    for tail in ("naive", "polyphase"):
+        model = rrdb.RRDBNet(GeneratorConfig(
+            n_blocks=2, filters=32, growth=16, conv_impl=impl,
+            init="torch_default", tail_up=tail))
+        model.load_state_dict(sd)
+        model.to(cuda).prepare(torch.float32)
+        with torch.inference_mode():
+            before = conv3x3.launches
+            outs[tail] = model(x)
+            launches = conv3x3.launches - before
+    n_blocks = 2 * 3
+    want = {"pallas_cf_tail": 2,
+            "pallas": n_blocks * LAUNCHES_PER_BLOCK + 4}.get(impl, 0)
+    assert launches == want
+    torch.testing.assert_close(outs["polyphase"], outs["naive"], atol=2e-5,
+                               rtol=1e-5)

@@ -55,7 +55,10 @@ def test_port_has_the_files_it_should():
                  "super_resolution_tpu_torch/train/steps.py",
                  "super_resolution_tpu_torch/train/loop.py",
                  "super_resolution_tpu_torch/train/evaluate.py",
-                 "super_resolution_tpu_torch/halo_sweep.py"):
+                 "super_resolution_tpu_torch/halo_sweep.py",
+                 "super_resolution_tpu_torch/ops/upsample_conv.py",
+                 "super_resolution_tpu_torch/parallel/dp.py",
+                 "super_resolution_tpu_torch/parallel/multihost.py"):
         assert want in rel
     for source in ("dense_block.cu", "dense_block_bwd.cu", "conv3x3.cu",
                    "conv3x3_tile.cuh"):

@@ -157,13 +157,15 @@ def test_configs_match_jax_field_for_field():
 
 def test_only_auto_conv_impl_and_naive_tail():
     """Every conv path of the JAX package builds, lax included; an
-    unknown impl raises, and the polyphase tail is not ported yet and
-    raises."""
+    unknown impl raises; both tails build (``naive``, ``polyphase``) and
+    an unknown one raises."""
     with pytest.raises(ValueError, match="conv_impl"):
         GeneratorConfig(conv_impl="xla")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="tail_up"):
         RRDBNet(GeneratorConfig(n_blocks=1, filters=16, growth=8,
-                                tail_up="polyphase"))
+                                tail_up="bilinear"))
+    RRDBNet(GeneratorConfig(n_blocks=1, filters=16, growth=8,
+                            tail_up="polyphase"))
     for impl in ("auto", "lax", "pallas_cf", "pallas_cf_tail", "pallas",
                  "pallas_fused"):
         model = RRDBNet(GeneratorConfig(n_blocks=1, filters=16, growth=8,

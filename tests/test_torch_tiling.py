@@ -108,3 +108,65 @@ def test_single_tile_frame_runs_whole(models):
     np.testing.assert_array_equal(
         tiling.tiled_upscale(port_fn, lr, tile=32, halo=4).numpy(),
         port_fn(lr[None])[0].numpy())
+
+
+@pytest.mark.parametrize("n_tiles_h,tile_batch", [(5, 2), (3, 4)])
+def test_tiled_upscale_over_two_devices_equals_one(models, n_tiles_h,
+                                                   tile_batch):
+    """The tiles split over two replicas (two CPU "devices" here) give
+    the one device's frame bit for bit: each replica runs the batches
+    the single device would run, the last group unpadded."""
+    _, port_fn = models
+    lr = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (16 * n_tiles_h - 8, 40, 3)).astype(np.float32))
+    calls = []
+
+    def replica(i):
+        def fn(x):
+            calls.append((i, x.shape[0]))
+            return port_fn(x)
+        return fn
+
+    one = tiling.tiled_upscale(port_fn, lr, tile=16, halo=4,
+                               tile_batch=tile_batch)
+    two = tiling.tiled_upscale([replica(0), replica(1)], lr, tile=16,
+                               halo=4, tile_batch=tile_batch,
+                               devices=["cpu", "cpu"])
+    assert torch.equal(one, two)
+    n_tiles = len(tiling.plan_tiles(lr.shape[0], 40, 16, 4)[1]) * \
+        len(tiling.plan_tiles(lr.shape[0], 40, 16, 4)[2])
+    assert sum(n for _, n in calls) == n_tiles
+    assert {i for i, _ in calls} == {0, 1}
+    assert all(n <= tile_batch for _, n in calls)
+
+
+def test_cli_upscale_over_two_devices_equals_one(tmp_path):
+    """``cli upscale --data_parallel 2`` (two CPU replicas) writes the
+    one-device frame's bytes; on a machine with fewer than two cards
+    ``--device cuda`` raises instead of running elsewhere."""
+    from PIL import Image
+
+    from super_resolution_tpu_torch.cli import main
+    from torch_spec import RRDBNetTorch
+
+    torch.manual_seed(0)
+    pth = str(tmp_path / "g.pth")
+    torch.save(RRDBNetTorch(nf=16, nb=1, gc=8).state_dict(), pth)
+    src = str(tmp_path / "lr.png")
+    Image.fromarray(np.random.default_rng(1).integers(
+        0, 256, (40, 36, 3), dtype=np.uint8)).save(src)
+    out = {}
+    for n in ("1", "2"):
+        out[n] = str(tmp_path / f"sr{n}.png")
+        assert main(["upscale", "--image", src, "--checkpoint", pth,
+                     "--out", out[n], "--device", "cpu", "--dtype",
+                     "float32", "--tile", "16", "--halo", "4",
+                     "--tile_batch", "2", "--data_parallel", n]) == 0
+    with Image.open(out["1"]) as a, Image.open(out["2"]) as b:
+        assert np.array_equal(np.asarray(a), np.asarray(b))
+    if torch.cuda.device_count() < 2:
+        with pytest.raises((RuntimeError, ValueError), match="CUDA device"):
+            main(["upscale", "--image", src, "--checkpoint", pth, "--out",
+                  str(tmp_path / "x.png"), "--data_parallel", "2",
+                  "--device", "cuda"])
+        assert not (tmp_path / "x.png").exists()

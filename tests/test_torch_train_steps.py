@@ -381,13 +381,12 @@ def test_lr_schedule_in_a_step():
 
 def test_presets_equal_the_jax_package():
     for name in ("infer_single", "pretrain_psnr", "train_gan",
-                 "train_gan_dfm", "infer_tiled"):
+                 "train_gan_dfm", "infer_tiled", "train_gan_dp8"):
         assert dataclasses.asdict(C.preset(name)) == \
             dataclasses.asdict(JC.preset(name)), name
     assert C.PRESETS == JC.PRESETS
     assert C.ema_maturity_steps(0.999) == JC.ema_maturity_steps(0.999)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        C.preset("train_gan_dp8")
+    assert C.preset("train_gan_dp8").data_parallel == 8
 
 
 def test_n_params_matches_the_jax_package():
