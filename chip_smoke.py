@@ -160,7 +160,46 @@ and prints no result line:
    <fresh>`` (2 blocks) twice, each in its own process with a logging
    ``nvcc`` first on PATH: the first builds conv3x3's library into the
    directory, the second starts no nvcc; both wall times.
-20. the ``kernels`` JSON line, the card's name and power limit as
+20. halo-parity (right after export, on its directories):
+   ``tools.halo_parity`` of the train phase's step directory
+   (``--weights auto``, float32 and bfloat16) and of the serve phase's
+   weights as a ``.pth``: a line per halo (2, 4, 6, 8, 12), dense-block
+   launches in whole forwards.
+Then the last slice's tools, each a subprocess (after build-cache):
+21. grain: ``cli train --loader grain``.  Without the ``grain`` package
+   (this machine has none) a nonzero exit naming grain, no step and no
+   checkpoint; with it, 2 + 2 steps at 2 blocks, resumed equal to
+   straight bit for bit.
+22. convert-vgg: ``tools.convert_vgg`` of a seeded VGG-19 state dict
+   with torchvision's key names; the port's VGG features from the npz on
+   the card (float32, TF32 off) within 1e-4 of the CPU's.
+23. grad-bench: ``tools.grad_bench`` at (16, 64, 48²) bf16: lax and
+   kernel ms, ``kernel_fold`` not ported, launches by the formulas; on
+   its inputs the backward kernels' dx within 2^-6 of the largest |dx|
+   of the plain backward's (same buffer and cotangent), and the whole
+   forward + backward's dx of kernels, plain block, cuDNN and float32
+   against each other (recorded).
+24. verify-grads: ``tools.verify_grads_onchip`` at 16 x 192², 23 blocks,
+   its own tolerances (losses 1e-4, worst leaf 0.02): exit 0, the loss
+   delta and the worst leaf, 345 + 552 launches.
+25. train-bench: ``tools.train_bench --step gan`` and ``--step
+   pretrain`` under lax, pallas_cf and pallas_cf_tail, ten steps: ms per
+   step, it/s, launches of one step by formula (none under lax).
+26. profile-gan: ``tools.profile_gan --impl pallas_cf --trace``: the
+   component table with each component's device time, the full step,
+   the sum; a trace naming ``conv3x3_wgmma``, ``bwd_prep`` and
+   ``wgrad_wgmma``; a step's launches by formula.
+27. tiled-bench: ``tools.tiled_bench`` on the 2048² LR frame (defaults
+   with ``--decompose`` under pallas_cf, then pallas_fused and
+   pallas_cf_tail, then 128-wide tiles 128, 256, 384 and 704 high without
+   bucketing: the rate against tile height): s/frame, MP/s, the stages,
+   345 dense-block launches per tile batch.
+28. demo: ``tools.demo_train_eval --steps 200 --gan_steps 50 --blocks 23
+   --conv_impl pallas_cf``: completes, every printed number finite, 552
+   backward launches per training step; the PSNR model against bicubic
+   and the GAN's sharpening recorded, not gated.
+29. the ``kernels`` JSON line (the tools' launches in
+   ``launches_tools_path``), the card's name and power limit as
    nvidia-smi prints them, then the ``ok`` JSON line last; the total
    wall time on stderr.
 
@@ -3140,6 +3179,469 @@ def build_cache_phase():
     return res
 
 
+# ---------------------------------------------------------------------------
+# The last slice's tools, each a subprocess of the card (``run_tool``)
+
+
+def tool_launches(out):
+    """The ``launches: {...}`` line a tool ends with, parsed."""
+    return json.loads(out.rstrip().splitlines()[-1].split("launches: ", 1)[1])
+
+
+def grain_phase():
+    """``cli train --loader grain``.  Without the grain package (this
+    machine's case) a nonzero exit whose message names grain, and no
+    step taken, never the threaded loader in its place; with it, 2 + 2
+    steps at 2 blocks and a resume equal bit for bit to a straight run."""
+    import importlib.util
+
+    import numpy as np
+    from PIL import Image
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        rng = np.random.default_rng(11)
+        for i in range(3):
+            Image.fromarray(rng.integers(0, 256, (64, 64, 3),
+                                         dtype=np.uint8)).save(
+                os.path.join(data, f"i{i}.png"))
+        argv = ["train", "--loader", "grain", "--dataset_dir", data,
+                "--preset", "train_gan_dfm", "--residual_blocks", "2",
+                "--batch_size", "4", "--hr_height", "32", "--n_cpu", "0",
+                "--warmup_batches", "2"]
+        if importlib.util.find_spec("grain") is None:
+            ck = os.path.join(tmp, "ck")
+            p = subprocess.run(
+                [sys.executable, "-m", "super_resolution_tpu_torch.cli",
+                 *argv, "--steps", "2", "--checkpoint_dir", ck], cwd=HERE,
+                capture_output=True, text=True, timeout=300)
+            res = dict(grain=False, rc=p.returncode,
+                       message=p.stderr.strip().splitlines()[-1:],
+                       stepped="] warmup step" in p.stdout
+                       or "[gan step" in p.stdout,
+                       checkpoint_dir=os.path.exists(ck))
+            print("[grain] " + json.dumps(res), flush=True)
+            if p.returncode == 0 or "grain" not in p.stderr \
+                    or res["stepped"] or res["checkpoint_dir"]:
+                fail(f"--loader grain without grain did not refuse: {res}")
+            return res
+        import torch
+
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True     # for the bit compare
+        try:
+            a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+            rcs = [cli_train_recorded(argv + x)[0] for x in (
+                ["--steps", "2", "--checkpoint_dir", a],
+                ["--steps", "4", "--checkpoint_dir", a, "--resume"],
+                ["--steps", "4", "--checkpoint_dir", b])]
+        finally:
+            torch.backends.cudnn.deterministic = prev
+        load = lambda d: torch.load(os.path.join(d, "4", "state.pt"),  # noqa
+                                    map_location="cpu", weights_only=True)
+        diff = trees_equal(load(a), load(b))
+        res = dict(grain=True, rcs=rcs, differing=diff[:8])
+        print("[grain] " + json.dumps(res), flush=True)
+        if any(rcs) or diff:
+            fail(f"cli train --loader grain: {res}")
+        return res
+
+
+def convert_vgg_phase():
+    """``tools.convert_vgg`` on a seeded synthetic VGG-19 state dict with
+    torchvision's key names; the port's VGG features from the npz on the
+    card in float32 (TF32 off) against the CPU within 1e-4 of the largest
+    feature (``tests/test_parity.py``'s VGG tolerance)."""
+    import numpy as np
+    import torch
+
+    from super_resolution_tpu_torch.config import VGGConfig
+    from super_resolution_tpu_torch.models.vgg import (
+        VGGFeatures,
+        load_vgg_params,
+    )
+
+    gen = torch.Generator().manual_seed(19)
+    sd, idx, cin = {}, 0, 3
+    for item in VGGConfig().arch:
+        if item == "M":
+            idx += 1
+            continue
+        sd[f"features.{idx}.weight"] = torch.randn(
+            item, cin, 3, 3, generator=gen) * (2.0 / (9 * cin)) ** 0.5
+        sd[f"features.{idx}.bias"] = torch.randn(item, generator=gen) * 0.01
+        idx, cin = idx + 2, item          # conv, ReLU
+    with tempfile.TemporaryDirectory() as tmp:
+        pth, npz = os.path.join(tmp, "vgg19.pth"), os.path.join(tmp, "v.npz")
+        torch.save(sd, pth)
+        run_tool("convert_vgg", [pth, npz], 300)
+        weights = load_vgg_params(npz)
+    x = torch.from_numpy(np.random.default_rng(5).random(
+        (2, 64, 64, 3), dtype=np.float32))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        vgg = VGGFeatures()
+        vgg.load_state_dict(weights, strict=True)
+        with torch.no_grad():       # the trunk runs its convs TF32-off
+            outs[dev] = vgg.to(dev)(x.to(dev)).cpu()
+    scale = float(outs["cpu"].abs().max())
+    err = float((outs["cuda"] - outs["cpu"]).abs().max()) / scale
+    res = dict(convs=len(weights) // 2, max_rel_err=err,
+               shape=list(outs["cuda"].shape))
+    print("[convert-vgg] " + json.dumps(res), flush=True)
+    if res["convs"] != 16 or not err <= 1e-4:
+        fail(f"convert_vgg: {res}")
+    return res
+
+
+def grad_bench_phase():
+    """``tools.grad_bench`` at its defaults, (16, 64, 48²) bf16: ms of
+    lax and kernel, ``kernel_fold`` not ported, launches by the
+    formulas.  Then, on the tool's seeded inputs in this process, the
+    backward kernels' dx against the plain backward's from the same
+    saved buffer and cotangent within 2^-6 of the largest |dx| (the bf16
+    backward's bound, PERF.md section 2), and for the record the dx of
+    the whole forward + backward through the kernels, the plain block
+    and cuDNN's bf16 autograd, each against the others and against the
+    float32 dx of the same bf16 values: a bf16 activation that rounds
+    the other way in one forward moves the cotangent and dx through
+    every later conv, so those differ by about as much as each differs
+    from float32."""
+    import importlib
+    import re
+
+    import torch
+
+    from super_resolution_tpu_torch.device import no_tf32
+    from super_resolution_tpu_torch.ops.dense_block import (
+        bwd_launches,
+        dense_block_train,
+        fwd_launches,
+    )
+    from super_resolution_tpu_torch.ops.experiments_dense_block import _packed
+    from super_resolution_tpu_torch.tools.grad_bench import dx_of, make_inputs
+    from super_resolution_tpu_torch.tools.kernel_bench import lax_block
+
+    out = run_tool("grad_bench", [], 600)
+    ms = {}
+    for v in ("lax", "kernel"):
+        m = re.search(rf"^{v}\s+:\s+([\d.]+) ms\s+([\d.]+) TF/s", out, re.M)
+        if not m:
+            fail(f"grad_bench printed no time for {v}")
+        ms[v] = float(m.group(1))
+    m = re.search(r"dx maxerr vs lax (\S+) of max \|dx\| (\S+)$", out, re.M)
+    if not m or not re.search(r"^kernel_fold : .*not ported", out, re.M):
+        fail("grad_bench: no dx comparison or no kernel_fold line")
+    launches = tool_launches(out)
+    calls = launches["dense_block"] // fwd_launches(5)
+
+    ops = importlib.import_module("super_resolution_tpu_torch.ops.dense_block")
+    x, tgt, ws, bs = make_inputs(16, 48, 48, torch.device("cuda"))
+    wp, bp = _packed(x, ws, bs)
+
+    def kernel_block(a):
+        return dense_block_train(a, wp, bp, res_scale=0.2, slope=0.2)
+
+    # the backward alone, both from the kernel forward's saved buffer
+    # and the L2 loss's cotangent: the bound's own comparison
+    y, feats = ops.dense_block(x, wp, bp, res_scale=0.2, slope=0.2,
+                               save_acts=True)
+    g = (2.0 * (y.float() - tgt)).to(x.dtype)
+    bwd = {name: fn(feats, wp, g, res_scale=0.2, slope=0.2)[0].float()
+           for name, fn in (("kernel", ops.dense_block_bwd),
+                            ("plain", ops.plain_backward))}
+    bwd_big = float(bwd["plain"].abs().max())
+    dx = {"kernel": dx_of(kernel_block, x, tgt).float(),
+          "lax": dx_of(lambda a: lax_block(a, ws, bs), x, tgt).float()}
+    orig = ops.dense_block, ops.dense_block_bwd
+    ops.dense_block, ops.dense_block_bwd = ops.plain_forward, \
+        ops.plain_backward
+    try:
+        dx["plain"] = dx_of(kernel_block, x, tgt).float()
+    finally:
+        ops.dense_block, ops.dense_block_bwd = orig
+    with no_tf32():
+        dx["f32"] = dx_of(lambda a: lax_block(a, [w.float() for w in ws],
+                                              bs), x.float(), tgt)
+    big = float(dx["f32"].abs().max())
+
+    def rel(a, b):
+        return float((dx[a] - dx[b]).abs().max()) / big
+
+    res = dict(ms=ms, launches=launches, max_abs_dx=big,
+               tool_dx_maxerr_vs_lax=float(m.group(1)),
+               bwd_kernel_vs_plain=float((bwd["kernel"] - bwd["plain"])
+                                         .abs().max()) / bwd_big,
+               kernel_vs_plain=rel("kernel", "plain"),
+               kernel_vs_lax=rel("kernel", "lax"),
+               kernel_vs_f32=rel("kernel", "f32"),
+               plain_vs_f32=rel("plain", "f32"),
+               lax_vs_f32=rel("lax", "f32"))
+    print("[grad-bench] " + json.dumps(res), flush=True)
+    if not res["bwd_kernel_vs_plain"] <= 2.0 ** -6:
+        fail(f"grad_bench: the backward kernels' dx is "
+             f"{res['bwd_kernel_vs_plain']} of the largest |dx| from the "
+             f"plain backward's on the same buffer and cotangent (bound "
+             f"2^-6)")
+    if calls == 0 or launches["dense_block"] != calls * fwd_launches(5) \
+            or launches["dense_block_bwd"] != calls * bwd_launches(
+                5, torch.bfloat16):
+        fail(f"grad_bench launches {launches} off the formulas")
+    return res
+
+
+def verify_grads_phase():
+    """``tools.verify_grads_onchip`` at its defaults (16 x 192², 23
+    blocks, the tool's own tolerances): exit 0, the loss delta, the
+    worst leaf, one generator forward and one backward of launches."""
+    import re
+
+    out = run_tool("verify_grads_onchip", [], 900)
+    losses = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^(lax|pallas_cf): loss=(\S+) gnorm=", out, re.M)}
+    m = re.search(r"^worst leaf reldiff: (\S+) at (\S+); non-finite kernel "
+                  r"grad elements: (\d+)$", out, re.M)
+    if len(losses) != 2 or not m or "ON-CHIP GRAD PARITY: OK" not in out:
+        fail("verify_grads_onchip printed no verdict")
+    launches = tool_launches(out)
+    res = dict(loss_delta=abs(losses["lax"] - losses["pallas_cf"]),
+               losses=losses, worst_leaf_reldiff=float(m.group(1)),
+               worst_leaf=m.group(2), nonfinite=int(m.group(3)),
+               launches=launches)
+    print("[verify-grads] " + json.dumps(res), flush=True)
+    if launches["dense_block"] != 345 or launches["dense_block_bwd"] != 552:
+        fail(f"verify_grads_onchip launches {launches}: want 345 forward "
+             f"and 552 backward (one generator step)")
+    return res
+
+
+TRAIN_BENCH_IMPLS = ("lax", "pallas_cf", "pallas_cf_tail")
+
+
+def train_bench_phase():
+    """``tools.train_bench`` under lax, pallas_cf and pallas_cf_tail, ten
+    steps each, GAN and pretrain: ms/step, it/s and the launches of one
+    step against the formulas (none of the port's kernels under lax)."""
+    import re
+
+    want = {"lax": {},
+            "pallas_cf": {"dense_block": 345, "dense_block_bwd": 552},
+            "pallas_cf_tail": {"dense_block": 345, "dense_block_bwd": 552,
+                               "conv3x3": 4}}
+    res = {}
+    for step in ("gan", "pretrain"):
+        out = run_tool("train_bench", ["--step", step, "--impls",
+                                       ",".join(TRAIN_BENCH_IMPLS),
+                                       "--steps", "10"], 900)
+        res[step] = {"launches": tool_launches(out)}
+        for impl in TRAIN_BENCH_IMPLS:
+            m = re.search(rf"^{impl}\s+{step}:\s+([\d.]+) it/s  \(([\d.]+) "
+                          rf"ms/step, ([\d.]+) MP/s HR.*launches/step "
+                          rf"(\{{.*\}})$", out, re.M)
+            if not m:
+                fail(f"train_bench {step} printed no line for {impl}")
+            per_step = json.loads(m.group(4))
+            res[step][impl] = dict(it_s=float(m.group(1)),
+                                   ms=float(m.group(2)),
+                                   hr_mp_s=float(m.group(3)),
+                                   launches_per_step=per_step)
+            if per_step != want[impl]:
+                fail(f"train_bench {step} {impl}: one step launched "
+                     f"{per_step}, want {want[impl]}")
+    print("[train-bench] " + json.dumps(res), flush=True)
+    return res
+
+
+PROFILE_ROWS = ("preprocess (aug+bicubic+norm)", "G fwd", "G fwd+bwd (L2)",
+                "  stem+tail-only fwd+bwd", "  => 23-block trunk fwd+bwd",
+                "D fwd (train mode)", "G-step D pass (2 fwd + d/d_sr bwd)",
+                "D step (2 fwd + param bwd)", "Adam update (G tree)",
+                "Adam update (D tree)")
+
+
+def profile_gan_phase():
+    """``tools.profile_gan --impl pallas_cf --trace``: the component
+    table with device times, the full step, the sum, a trace naming the
+    dense-block kernels, launches by formula."""
+    import re
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = run_tool("profile_gan", ["--impl", "pallas_cf", "--trace",
+                                       tmp, "--trace_steps", "2"], 900)
+        traces = [n for n in os.listdir(tmp) if n.endswith(".json")]
+        if len(traces) != 1:
+            fail(f"profile_gan --trace wrote {traces}")
+        with open(os.path.join(tmp, traces[0])) as f:
+            events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in events if e.get("cat") == "kernel"}
+    named = {k: any(k in n for n in names)
+             for k in ("conv3x3_wgmma", "bwd_prep", "wgrad_wgmma")}
+    table = {}
+    for name in PROFILE_ROWS:
+        m = re.search(rf"^{re.escape(f'{name:34s}')} +(-?[\d.]+) ms  device "
+                      rf"+(-?[\d.]+) ms$", out, re.M)
+        if not m:
+            fail(f"profile_gan printed no device time for {name.strip()!r}")
+        table[name.strip()] = dict(ms=float(m.group(1)),
+                                   device_ms=float(m.group(2)))
+    m = re.search(r"^FULL GAN step +([\d.]+) ms \(([\d.]+) it/s\)  "
+                  r"launches/step (\{.*\})$", out, re.M)
+    s = re.search(r"^sum of components +([\d.]+) ms$", out, re.M)
+    if not m or not s:
+        fail("profile_gan printed no full step or sum")
+    res = dict(components=table, full_step_ms=float(m.group(1)),
+               sum_of_components_ms=float(s.group(1)),
+               full_step_launches=json.loads(m.group(3)),
+               trace_names=named, launches=tool_launches(out))
+    print("[profile-gan] " + json.dumps(res), flush=True)
+    if not all(named.values()):
+        fail(f"the trace does not name every dense-block kernel: {named}")
+    if res["full_step_launches"] != {"dense_block": 345,
+                                     "dense_block_bwd": 552}:
+        fail(f"profile_gan: a GAN step launched "
+             f"{res['full_step_launches']}")
+    return res
+
+
+TILED_RUNS = (("pallas_cf", ["--decompose"]),
+              ("pallas_fused", ["--conv_impl", "pallas_fused"]),
+              ("pallas_cf_tail", ["--conv_impl", "pallas_cf_tail"]),
+              *((f"tile_{t}", ["--bucket_h", "0", "--tile", str(t)])
+                for t in (128, 256, 384, 704)))
+
+
+def tiled_bench_phase():
+    """``tools.tiled_bench`` on the 2048² LR frame: the defaults with
+    ``--decompose`` under pallas_cf, then pallas_fused and
+    pallas_cf_tail, then the rate against tile height (no bucketing,
+    128-wide tiles 128, 256, 384 and 704 high): s/frame, MP/s, the stage
+    split, 345 dense-block launches per tile batch (and 4 single convs
+    under pallas_cf_tail)."""
+    import re
+
+    res = {}
+    for name, argv in TILED_RUNS:
+        out = run_tool("tiled_bench", argv, 600)
+        m = re.search(r"\): ([\d.]+) s/frame = ([\d.]+) MP/s/chip$", out,
+                      re.M)
+        g = re.search(r"^\[tiled\] tile (\d+)x(\d+), (\d+) tiles, (\d+) tile "
+                      r"batches; launches/frame (\{.*\})$", out, re.M)
+        if not m or not g:
+            fail(f"tiled_bench {name} printed no frame time")
+        batches = int(g.group(4))
+        per_frame = json.loads(g.group(5))
+        run = dict(s_per_frame=float(m.group(1)), mp_s=float(m.group(2)),
+                   tile=[int(g.group(1)), int(g.group(2))],
+                   tiles=int(g.group(3)), tile_batches=batches,
+                   launches_per_frame=per_frame,
+                   launches=tool_launches(out))
+        if name == "pallas_cf":
+            run["stages_s"] = {
+                k: float(v) for k, v in re.findall(
+                    r"^\[tiled\] stage (\w+)\s*: ([\d.]+) s$", out, re.M)}
+            if len(run["stages_s"]) != 3:
+                fail(f"tiled_bench --decompose: {run['stages_s']}")
+        block = "dense_block_nhwc" if name == "pallas_fused" \
+            else "dense_block"
+        want = {block: 345 * batches}
+        if name == "pallas_cf_tail":
+            want["conv3x3"] = 4 * batches
+        if per_frame != want:
+            fail(f"tiled_bench {name}: a frame launched {per_frame}, want "
+                 f"{want}")
+        res[name] = run
+    print("[tiled-bench] " + json.dumps(res), flush=True)
+    return res
+
+
+def halo_parity_phase(ck, work, serve_sd):
+    """``tools.halo_parity`` on the train phase's step directory
+    (``--weights auto``, float32 and bfloat16) and on the serve phase's
+    seeded ``.pth``: one line per halo, launches by formula."""
+    import re
+
+    import torch
+
+    pth = os.path.join(work, "serve_weights.pth")
+    torch.save(serve_sd, pth)
+    res = {}
+    for name, argv in (("ck_float32", ["--checkpoint", ck]),
+                       ("ck_bfloat16", ["--checkpoint", ck, "--dtype",
+                                        "bfloat16"]),
+                       ("pth_float32", ["--checkpoint", pth])):
+        out = run_tool("halo_parity", argv, 600)
+        rows = {int(h): dict(max=float(a), mean=float(b),
+                             psnr_vs_whole_db=float(p))
+                for h, a, b, p in re.findall(
+                    r"^\[halo\] halo=\s*(\d+) \(waste .*\): max=(\S+) "
+                    r"mean=(\S+) uint8_lsb_max=\d+ psnr_vs_whole=(\S+)dB$",
+                    out, re.M)}
+        launches = tool_launches(out)
+        res[name] = dict(rows=rows, launches=launches)
+        if sorted(rows) != [2, 4, 6, 8, 12]:
+            fail(f"halo_parity {name}: rows for halos {sorted(rows)}")
+        if not launches["dense_block"] or launches["dense_block"] % 345:
+            fail(f"halo_parity {name}: launches {launches}")
+    print("[halo-parity] " + json.dumps(res), flush=True)
+    return res
+
+
+def demo_phase():
+    """``tools.demo_train_eval --steps 200 --gan_steps 50 --blocks 23
+    --conv_impl pallas_cf``: it completes, every number it prints is
+    finite; whether the PSNR model beats bicubic and whether the GAN
+    sharpens are recorded, not gated."""
+    import re
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out = run_tool("demo_train_eval", [
+            "--steps", "200", "--gan_steps", "50", "--blocks", "23",
+            "--conv_impl", "pallas_cf", "--out", os.path.join(tmp, "demo")],
+            1200)
+        secs = time.perf_counter() - t0
+    rows = {m.group(1): {k: float(v) for k, v in re.findall(
+                r"(\w+)=(\S+)", m.group(2))}
+            for m in re.finditer(r"^\[demo\] (bicubic|psnr|gan|gan_ema)\s*: "
+                                 r"(.*)$", out, re.M)}
+    gain = re.search(r"PSNR-model gain over bicubic: (\S+) dB \((.*)\)", out)
+    sharp = re.search(r"GAN sharpness gain over PSNR model: (\S+) .*; "
+                      r"(\w+ ?\w*)\)", out)
+    numbers = []         # every key=value number, and the two gains
+    for v in re.findall(r"=(\S+)|gain over \S+(?: model)?: (\S+)", out):
+        try:
+            numbers.append(float((v[0] or v[1]).rstrip(")],;")))
+        except ValueError:
+            pass
+    launches = tool_launches(out)
+    res = dict(s=secs, rows=rows, psnr_gain_db=float(gain.group(1))
+               if gain else None, psnr_verdict=gain.group(2) if gain else None,
+               gan_sharpness_gain=float(sharp.group(1)) if sharp else None,
+               gan_verdict=sharp.group(2) if sharp else None,
+               launches=launches)
+    print("[demo] " + json.dumps(res), flush=True)
+    if sorted(rows) != ["bicubic", "gan", "gan_ema", "psnr"] or not gain \
+            or not sharp:
+        fail(f"demo_train_eval printed no comparison: {sorted(rows)}")
+    if not all(math.isfinite(v) for v in numbers):
+        fail("demo_train_eval printed a number that is not finite")
+    if launches["dense_block_bwd"] != 250 * 552 \
+            or launches["dense_block"] % 345:
+        fail(f"demo_train_eval launches {launches}: want 552 backward "
+             f"launches per step of 250")
+    return res
+
+
+def tools_path_launches(runs):
+    """Launches by counter summed over the new tools' runs."""
+    total = {}
+    for launches in runs:
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "super_resolution_tpu_torch")):
         print("chip_smoke: the super_resolution_tpu_torch package is not "
@@ -3197,6 +3699,9 @@ def main() -> int:
         export_phase(ck, work, frame["sd"], smi)
         print(f"[eval+export] the two phases took "
               f"{time.perf_counter() - t_new:.1f} s", flush=True)
+        t_new = time.perf_counter()
+        halo = halo_parity_phase(ck, work, frame["sd"])
+        t_halo = time.perf_counter() - t_new
     conv = conv3x3_phase()
     fused = fused_phase()
     impls = impls_phase(frame)
@@ -3213,6 +3718,25 @@ def main() -> int:
     build_cache_phase()
     print(f"[polyphase+train-dp+profile-dir+build-cache] the four phases "
           f"took {time.perf_counter() - t_new:.1f} s", flush=True)
+    t_new = time.perf_counter()
+    grain_phase()
+    convert_vgg_phase()
+    grad = grad_bench_phase()
+    vgrads = verify_grads_phase()
+    tbench = train_bench_phase()
+    prof = profile_gan_phase()
+    tiled = tiled_bench_phase()
+    demo = demo_phase()
+    print(f"[grain+convert-vgg+grad-bench+verify-grads+train-bench+"
+          f"profile-gan+tiled-bench+demo] the eight phases took "
+          f"{time.perf_counter() - t_new:.1f} s, [halo-parity] "
+          f"{t_halo:.1f} s", flush=True)
+    # the new tools' runs, each counted from 0 in its own process
+    tools_path = tools_path_launches([
+        grad["launches"], vgrads["launches"],
+        tbench["gan"]["launches"], tbench["pretrain"]["launches"],
+        prof["launches"], *(r["launches"] for r in tiled.values()),
+        *(r["launches"] for r in halo.values()), demo["launches"]])
     print("[impls] lax: " + json.dumps({
         "forward": impls["lax"], "cli": impls["cli_lax"],
         "train_pallas_on_lax": lax_train}), flush=True)
@@ -3235,11 +3759,12 @@ def main() -> int:
         # the user's entry points, each counted from 0: cli upscale and
         # cli serve --once, then cli train, then cli eval
         "launches": serve_launches + train["fwd_launches"]
-        + evals["launches"] + dp_fwd,
+        + evals["launches"] + dp_fwd + tools_path["dense_block"],
         "launches_serve_path": serve_launches,
         "launches_train_path": train["fwd_launches"],
         "launches_eval_path": evals["launches"],
         "launches_train_dp_path": dp_fwd,
+        "launches_tools_path": tools_path["dense_block"],
         "max_abs_err": flag["max_abs_err"],
         "ms": flag["kernel_ms"],
         "plain_ms": flag["plain_ms"],
@@ -3252,9 +3777,11 @@ def main() -> int:
         "route": "cuda",
         "source": "super_resolution_tpu_torch/csrc/dense_block_bwd.cu",
         "replaces": REPLACES_BWD,
-        # cli train, then the data-parallel path
-        "launches": train["bwd_launches"] + dp_bwd,
+        # cli train, then the data-parallel path, then the tools
+        "launches": train["bwd_launches"] + dp_bwd
+        + tools_path["dense_block_bwd"],
         "launches_train_dp_path": dp_bwd,
+        "launches_tools_path": tools_path["dense_block_bwd"],
         "launches_per_block": bwd["launches"],
         "max_abs_err": bwd["max_abs_err"],
         "ms": bwd["kernel_ms"],
@@ -3274,7 +3801,8 @@ def main() -> int:
         "launches": (impls["cli_pallas_cf_tail"]["launches"]["conv3x3"]
                      + impls["cli_pallas"]["launches"]["conv3x3"]
                      + tail_train["totals"]["conv3x3"]
-                     + sum(poly_conv.values())),
+                     + sum(poly_conv.values()) + tools_path["conv3x3"]),
+        "launches_tools_path": tools_path["conv3x3"],
         "launches_polyphase_forward": poly_conv,
         "launches_upscale_pallas_cf_tail":
             impls["cli_pallas_cf_tail"]["launches"]["conv3x3"],
@@ -3293,9 +3821,11 @@ def main() -> int:
         "route": "cuda",
         "source": "super_resolution_tpu_torch/csrc/dense_block.cu",
         "replaces": REPLACES_NHWC,
-        # cli upscale --conv_impl pallas_fused, counted from 0
+        # cli upscale --conv_impl pallas_fused, then tiled_bench's, each
+        # counted from 0
         "launches": impls["cli_pallas_fused"]["launches"][
-            "dense_block_nhwc"],
+            "dense_block_nhwc"] + tools_path["dense_block_nhwc"],
+        "launches_tools_path": tools_path["dense_block_nhwc"],
         "max_abs_err": fused["flagship"]["max_abs_err"],
         "ms": fused["flagship"]["kernel_ms"],
         "plain_ms": fused["flagship"]["plain_ms"],

@@ -31,8 +31,9 @@ a card.  ``--profile_dir D`` writes a ``torch.profiler`` trace of
 training (rank 0's) into D.  ``--compile_cache_dir D`` builds and keeps
 the CUDA kernels' libraries in D (default: the package's ``_build/``),
 ``--no_compile_cache`` builds them into a temporary directory removed
-at exit.  ``--loader grain`` is accepted by the parser and raises: the
-grain loader is not ported yet (ROADMAP.md).
+at exit.  ``--loader grain`` feeds training from the grain loader
+(``data/grain_source.py``, each rank its rows); it needs the ``grain``
+package and raises without it, never falling back to ``threads``.
 ``--conv_impl`` picks the conv path by the JAX package's names (``auto``
 = ``pallas_cf``, ``pallas_cf_tail``, ``pallas``, ``pallas_fused``, and
 ``lax``: cuDNN, no kernel of the port) for ``upscale``, ``serve``,
@@ -346,13 +347,23 @@ def _interp(args, cfg) -> int:
     return 0
 
 
-def _train_rank(device, cfg, train_kw: dict, profile_dir) -> None:
+def _train_rank(device, cfg, train_kw: dict, profile_dir,
+                loader: str = "threads") -> None:
     """One rank of ``cli train`` (the whole run without data
-    parallelism); rank 0 alone traces."""
+    parallelism); rank 0 alone traces.  A grain loader is built here,
+    in the rank, for the rank's rows: it does not pickle across the
+    spawn."""
     from super_resolution_tpu_torch.metrics import profiler_trace
-    from super_resolution_tpu_torch.parallel import dp
+    from super_resolution_tpu_torch.parallel import dp, multihost
     from super_resolution_tpu_torch.train import train
 
+    if loader == "grain":
+        from super_resolution_tpu_torch.data.grain_source import (
+            GrainPatchLoader,
+        )
+
+        train_kw = dict(train_kw, data_loader=GrainPatchLoader(
+            cfg.data, seed=cfg.seed, part=multihost.data_part()))
     with profiler_trace(profile_dir if dp.rank() == 0 else None):
         train(cfg, device=device, **train_kw)
 
@@ -365,15 +376,17 @@ def _train(args, cfg) -> int:
     from super_resolution_tpu_torch.parallel import dp, multihost
 
     if args.loader == "grain":
-        raise NotImplementedError(
-            "--loader grain is not ported yet: the grain loader is "
-            "ROADMAP.md Queue 1 item 7")
+        from super_resolution_tpu_torch.data.grain_source import (
+            import_grain,
+        )
+
+        import_grain()           # raises before any rank starts
     device = resolve_device(args.device)
     rank_args = (cfg, dict(
         total_steps=args.steps, resume=args.resume,
         init_g_from=args.init_g_from, log_dir=args.log_dir,
         sample_dir=args.sample_dir, eval_dir=args.eval_dir,
-        eval_interval=args.eval_interval), args.profile_dir)
+        eval_interval=args.eval_interval), args.profile_dir, args.loader)
     if args.multihost:
         if args.coordinator is None or args.num_processes is None \
                 or args.process_id is None:
@@ -568,8 +581,9 @@ def main(argv=None):
                    help="this host's index")
     t.add_argument("--loader", choices=("threads", "grain"),
                    default="threads",
-                   help="input pipeline backend ('grain' is not ported "
-                        "yet)")
+                   help="input pipeline backend (grain = grain's "
+                        "MapDataset with multiprocess prefetch; needs "
+                        "the grain package)")
 
     e = sub.add_parser("eval", help="PSNR/SSIM over a validation dir")
     _add_common(e)

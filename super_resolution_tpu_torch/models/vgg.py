@@ -5,7 +5,8 @@ NHWC in and out; modules are named ``conv0`` .. ``conv15`` like the flax
 tree.  Used only inside the perceptual loss; its parameters never
 require a gradient.
 
-Weights come from ``tools/convert_vgg.py``'s npz through
+Weights come from the npz of ``python -m
+super_resolution_tpu_torch.tools.convert_vgg vgg19.pth out.npz`` through
 :func:`load_vgg_params`; without a file the trunk keeps its random init
 (a random-feature perceptual loss, what the tests hold against the JAX
 trunk with the same weights).
@@ -64,7 +65,7 @@ class VGGFeatures(nn.Module):
 
 
 def load_vgg_params(npz_path: str) -> Dict[str, torch.Tensor]:
-    """Converted VGG-19 weights (``tools/convert_vgg.py``) as a state
+    """Converted VGG-19 weights (``tools.convert_vgg``) as a state
     dict of :class:`VGGFeatures`.  The npz holds ``conv{i}_kernel``
     (HWIO) and ``conv{i}_bias`` for i in conv order 0..15."""
     raw = np.load(npz_path)

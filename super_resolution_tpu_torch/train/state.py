@@ -136,7 +136,8 @@ def init_state(cfg: TrainConfig,
                   "to ~1e-5 magnitude through 16 conv layers, so the "
                   "perceptual term is effectively inert and GAN training "
                   "will be dominated by the adversarial loss — convert "
-                  "ImageNet weights with tools/convert_vgg.py, use "
+                  "ImageNet weights with python -m "
+                  "super_resolution_tpu_torch.tools.convert_vgg, use "
                   "--perceptual_source d_features (discriminator feature "
                   "matching, no external asset), or train with "
                   "use_perceptual=False / --no_perceptual and a higher "

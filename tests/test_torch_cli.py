@@ -10,6 +10,7 @@ writes the same bytes as upscale.
 """
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -185,11 +186,16 @@ def test_default_device_is_the_card(pth, tmp_path):
     # never two replicas on one card)
     ("upscale", ["--data_parallel", "2", "--device", "cuda"],
      (RuntimeError, ValueError)),
-    ("train", ["--loader", "grain"], NotImplementedError),
+    # the grain loader without the grain package: raises, and never
+    # trains on the threaded loader in its place
+    ("train", ["--loader", "grain"], ImportError),
 ], ids=["data_parallel", "loader_grain"])
-def test_unported_options_raise(pth, tmp_path, cmd, argv, err):
+def test_unported_options_raise(pth, tmp_path, monkeypatch, cmd, argv,
+                                err):
     if cmd == "upscale" and torch.cuda.device_count() >= 2:
         pytest.skip("this machine has two cards")
+    if "grain" in argv:
+        monkeypatch.setitem(sys.modules, "grain", None)
     src = _save(tmp_path, "lr.png", _frame(8, 8, 8))
     if cmd == "upscale":
         argv = ["upscale", "--image", src, "--checkpoint", pth, "--out",

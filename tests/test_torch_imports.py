@@ -58,7 +58,12 @@ def test_port_has_the_files_it_should():
                  "super_resolution_tpu_torch/halo_sweep.py",
                  "super_resolution_tpu_torch/ops/upsample_conv.py",
                  "super_resolution_tpu_torch/parallel/dp.py",
-                 "super_resolution_tpu_torch/parallel/multihost.py"):
+                 "super_resolution_tpu_torch/parallel/multihost.py",
+                 "super_resolution_tpu_torch/data/grain_source.py",
+                 *(f"super_resolution_tpu_torch/tools/{t}.py" for t in (
+                     "convert_vgg", "grad_bench", "verify_grads_onchip",
+                     "train_bench", "profile_gan", "tiled_bench",
+                     "halo_parity", "demo_train_eval"))):
         assert want in rel
     for source in ("dense_block.cu", "dense_block_bwd.cu", "conv3x3.cu",
                    "conv3x3_tile.cuh"):

@@ -1,7 +1,7 @@
 """The port's training loop through ``cli train --device cpu``: the
 warmup -> GAN switch, non-square patches, step-exact resume, warm start
 from a ``.pth``, the checkpoint in ``cli upscale``, and the flags that
-raise: ``--loader grain`` (not ported yet), ``--multihost`` without its
+raise: ``--loader grain`` without the grain package, ``--multihost`` without its
 coordinator, data parallelism over more cards than there are.
 
 Sizes: one RRDB (the CLI has no flag for the generator's width, so the
@@ -15,6 +15,7 @@ statistics, the EMA and the augmentation generator.
 
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -179,19 +180,22 @@ def test_warm_start_seeds_the_ema_and_writes_provenance(tmp_path):
 
 @pytest.mark.parametrize("flags,err,match", [
     (["--multihost"], SystemExit, "--coordinator"),
-    (["--loader", "grain"], NotImplementedError, "not ported yet"),
+    (["--loader", "grain"], ImportError, "'grain' package"),
     (["--data_parallel", "2", "--device", "cuda"],
      (RuntimeError, ValueError), "CUDA device"),
     (["--preset", "train_gan_dp8", "--device", "cuda"],
      (RuntimeError, ValueError), "CUDA device"),
 ], ids=["--multihost", "--loader grain", "--data_parallel 2",
         "--preset train_gan_dp8"])
-def test_flags_not_ported_yet_raise(flags, err, match, tmp_path):
-    """What still raises: the grain loader, --multihost without its
+def test_flags_not_ported_yet_raise(flags, err, match, tmp_path,
+                                    monkeypatch):
+    """What raises: the grain loader without the grain package (never
+    the threaded loader in its place), --multihost without its
     coordinator flags, and more ranks than the machine has cards (never
     two to a card, never the CPU in their place)."""
     if torch.cuda.device_count() >= 8:
         pytest.skip("this machine has eight cards")
+    monkeypatch.setitem(sys.modules, "grain", None)
     with pytest.raises(err, match=match):
         main(["train", "--dataset_dir", "/nonexistent/synthetic",
               "--checkpoint_dir", str(tmp_path / "ck"), "--device", "cpu",
