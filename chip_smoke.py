@@ -37,6 +37,20 @@ and prints no result line:
    launch count of one forward, agreement with the same forward through
    the plain dense block (bf16 PSNR floor; fp32 tolerance on 2×64²), ms
    per batch and output MP/s.
+   bench (right after model): ``python -m super_resolution_tpu_torch.bench``
+   as a subprocess: exit 0, one stdout line with exactly ``bench.py``'s
+   four keys and a finite positive value, 345 dense-block launches per
+   forward run, and its ms per batch within 25 % of the model phase's
+   median (both time the same forward), printed beside the card.
+   eval-batch: ``train.steps.eval_batch`` of the full-width generator on
+   four seeded 192² uint8 HR frames through the kernels against the same
+   call through the plain kernels: |dPSNR| <= 0.05 dB in bf16 (the eval
+   phase's bound), <= 1e-3 dB in fp32 with TF32 off; 345 launches each;
+   each dense-block call of the run against its plain version on the
+   same input (the kernel phases' tolerance) and the SR batch against
+   the plain run's (the model phase's bounds); a fault planted into the
+   kernel's weights (a dropped tap) must fail the call bound in both
+   dtypes and the SR bound in fp32.
 4. serve: ``cli upscale`` and ``cli serve --once`` (two frames) on a
    synthetic RGBA frame that needs several tiles, with the full-width
    generator from a seeded BasicSR-named ``.pth``: ×4 shapes, alpha
@@ -178,7 +192,8 @@ Then the last slice's tools, each a subprocess (after build-cache):
    its inputs the backward kernels' dx within 2^-6 of the largest |dx|
    of the plain backward's (same buffer and cotangent), and the whole
    forward + backward's dx of kernels, plain block, cuDNN and float32
-   against each other (recorded).
+   against each other, the kernels' and the plain block's distance from
+   the float32 dx at most 1.25 times cuDNN's.
 24. verify-grads: ``tools.verify_grads_onchip`` at 16 x 192², 23 blocks,
    its own tolerances (losses 1e-4, worst leaf 0.02): exit 0, the loss
    delta and the worst leaf, 345 + 552 launches.
@@ -199,9 +214,10 @@ Then the last slice's tools, each a subprocess (after build-cache):
    backward launches per training step; the PSNR model against bicubic
    and the GAN's sharpening recorded, not gated.
 29. the ``kernels`` JSON line (the tools' launches in
-   ``launches_tools_path``), the card's name and power limit as
-   nvidia-smi prints them, then the ``ok`` JSON line last; the total
-   wall time on stderr.
+   ``launches_tools_path``, the bench's and eval_batch's in
+   ``launches_bench_path`` and ``launches_eval_batch_path``), the card's
+   name and power limit as nvidia-smi prints them, then the ``ok`` JSON
+   line last; the total wall time on stderr.
 
 It needs a CUDA card and the repository around it; without either it
 exits nonzero before printing any result.
@@ -237,12 +253,6 @@ FP32_MODEL_TOL = (1e-4, 1e-4)      # (atol, rtol), kernel vs plain forward
 # wrong row or column of outputs) moves values by tens of LSB.
 CLI_PLAIN_MAX_LSB = 8
 CLI_PLAIN_MEAN_LSB = 0.5
-# Seeded weights of the model and serve phases.  nn.Conv2d's default
-# init gives outputs of order 1 in which the 69 dense blocks move the
-# result by several percent of its range; the repo's msra_scaled (x0.1)
-# init leaves outputs near 1e-3 that barely depend on the trunk, so a
-# kernel-vs-plain comparison through it would show little.
-SEED_INIT = "torch_default"
 REPLACES = ("super_resolution_tpu/ops/pallas/dense_block_cf.py:347 "
             "fused_dense_block_cf5; super_resolution_tpu/ops/pallas/"
             "dense_block_cf_ext.py:309 fused_dense_block_cf9")
@@ -755,6 +765,7 @@ def model_phase():
     import torch
 
     import super_resolution_tpu_torch.models.rrdb as rrdb
+    from super_resolution_tpu_torch.bench import SEED_INIT
     from super_resolution_tpu_torch.config import GeneratorConfig, TrainConfig
     from super_resolution_tpu_torch.ops.dense_block import (
         LAUNCHES_PER_BLOCK,
@@ -827,6 +838,61 @@ def model_phase():
     profile_device(lambda: infer(x), ms, "profile")
     return dict(launches=launches, want=want, psnr_db=psnr, ms=ms,
                 mp_per_s=mps)
+
+
+# [bench] against [model]: both time the flagship forward (23 blocks,
+# bf16, 8 x 128², pallas_cf) on the same card in the same run, the bench
+# as chains of dependent forwards, the model phase as independent ones;
+# a gap past 25 % means one of the two measures something else.
+BENCH_VS_MODEL_REL = 0.25
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]
+
+
+def bench_phase(model_ms, smi):
+    """``python -m super_resolution_tpu_torch.bench`` as a subprocess of
+    the card, its line against ``bench.py``'s keys and its ms per batch
+    against the model phase's ``model_ms``; see the module docstring."""
+    import re
+
+    from super_resolution_tpu_torch.config import GeneratorConfig
+    from super_resolution_tpu_torch.ops.dense_block import LAUNCHES_PER_BLOCK
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "super_resolution_tpu_torch.bench"],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    print(proc.stderr, end="", flush=True)      # its lines say [bench]
+    print(f"[bench] stdout: {proc.stdout.strip()}", flush=True)
+    if proc.returncode != 0:
+        fail(f"the bench exited {proc.returncode}")
+    lines = proc.stdout.strip().splitlines()
+    line = json.loads(lines[-1]) if lines else {}
+    value = line.get("value")
+    if len(lines) != 1 or list(line) != BENCH_KEYS or not (
+            isinstance(value, (int, float)) and math.isfinite(value)
+            and value > 0):
+        fail(f"the bench printed {lines} on stdout: want one line with "
+             f"the keys {BENCH_KEYS} and a finite positive value")
+    ms = re.search(r"^\[bench\] ([\d.]+) ms per ", proc.stderr, re.M)
+    forwards = re.search(r"^\[bench\] forwards: (\d+)$", proc.stderr, re.M)
+    if not ms or not forwards:
+        fail("the bench printed no ms per batch or no forwards")
+    ms, forwards = float(ms.group(1)), int(forwards.group(1))
+    launches = tool_launches(proc.stderr)
+    gcfg = GeneratorConfig()
+    want = forwards * gcfg.n_blocks * gcfg.n_dense * LAUNCHES_PER_BLOCK
+    rel = ms / model_ms - 1.0
+    res = dict(line=line, ms=ms, model_ms=model_ms, rel_to_model=rel,
+               forwards=forwards, launches=launches)
+    print(f"[bench] {smi}: {ms:.3f} ms per batch ({value} MP/s) against "
+          f"the model phase's median {model_ms:.3f} ms: {rel:+.4f} (limit "
+          f"+-{BENCH_VS_MODEL_REL}); {json.dumps(res)}", flush=True)
+    if launches != {"dense_block": want}:
+        fail(f"bench launches {launches}: want {want} ({forwards} "
+             f"forwards x 345)")
+    if not abs(rel) <= BENCH_VS_MODEL_REL:
+        fail(f"the bench's {ms} ms per batch is {rel:+.4f} from the model "
+             f"phase's {model_ms} ms")
+    return res
 
 
 def forward_flops(gcfg, b, h, w):
@@ -947,6 +1013,7 @@ def serve_phase():
 
     import super_resolution_tpu_torch.models.rrdb as rrdb
     from super_resolution_tpu_torch import cli
+    from super_resolution_tpu_torch.bench import SEED_INIT
     from super_resolution_tpu_torch.config import GeneratorConfig
     from super_resolution_tpu_torch.data.image_io import upscale_alpha
     from super_resolution_tpu_torch.ops.dense_block import (
@@ -1570,6 +1637,173 @@ def eval_phase(sd, work, smi):
     return res
 
 
+# [eval-batch]: eval_batch through the kernels against the same call
+# through the plain kernels.  The bounds on |dPSNR| (bf16 the eval
+# phase's, fp32 with TF32 off the summation order only) cannot catch a
+# fault here: a freshly drawn generator's SR image has nothing to do
+# with the uint8 noise it is scored against, so its PSNR (about 10 dB)
+# barely moves when every dense block drops a tap.  What holds the
+# kernel is each dense-block call of the run against its plain version
+# on the same input at ``TOL``, and the SR batch against the plain run's
+# at the model phase's bounds; a fault planted into the kernel's weights
+# must fail the call bound in both dtypes and, in fp32, the SR bound.
+EVAL_BATCH_PLAIN_DB = {"bfloat16": EVAL_PLAIN_PSNR_DB, "float32": 1e-3}
+
+
+def drop_centre_tap(weights):
+    """Packed dense-block weights with conv 2's centre tap (tap 4 of
+    (9, cout, cin)) zeroed: a fault of the kind the checks must catch."""
+    weights = list(weights)
+    weights[1] = weights[1].clone()
+    weights[1][4] = 0
+    return weights
+
+
+class CheckedDenseBlock:
+    """``models.rrdb``'s dense block replaced by the kernel, each call's
+    output held against ``dense_block_plain`` on the same input and
+    weights: ``excess`` is the worst |k - p| - rtol·|p| - atol under
+    ``TOL[dtype]`` over the calls (> 0 fails).  ``fault`` changes the
+    weights the kernel is given; the plain version gets them as they
+    are."""
+
+    def __init__(self, dtype, fault=None):
+        self.tol, self.fault, self.excess = TOL[dtype], fault, []
+
+    def __enter__(self):
+        import super_resolution_tpu_torch.models.rrdb as rrdb
+        from super_resolution_tpu_torch.ops.dense_block import (
+            dense_block_plain,
+        )
+
+        self.rrdb, kernel = rrdb, rrdb.dense_block
+        atol, rtol = self.tol
+
+        def checked(x, weights, biases, **kw):
+            y = kernel(x, self.fault(weights) if self.fault else weights,
+                       biases, **kw)
+            p = dense_block_plain(x, weights, biases, **kw).float()
+            self.excess.append(((y.float() - p).abs() - rtol * p.abs())
+                               .max() - atol)
+            return y
+
+        rrdb.dense_block, self.kernel = checked, kernel
+        return self
+
+    def __exit__(self, *exc):
+        self.rrdb.dense_block = self.kernel
+
+    def worst(self) -> float:
+        import torch
+
+        return float(torch.stack(self.excess).max())
+
+
+def eval_batch_sr(cfg, sd, hr, device="cuda"):
+    """``train.steps.eval_batch`` on ``device``: (its PSNR, the SR batch
+    its forward made)."""
+    import super_resolution_tpu_torch.train.steps as steps
+
+    make, sr = steps.make_infer_fn, []
+
+    def recording(*args, **kw):
+        infer = make(*args, **kw)
+
+        def run(lr):
+            sr.append(infer(lr))
+            return sr[-1]
+
+        return run
+
+    steps.make_infer_fn = recording
+    try:
+        psnr = float(steps.eval_batch(cfg, sd, hr, device)["psnr"])
+    finally:
+        steps.make_infer_fn = make
+    return psnr, sr[0]
+
+
+def sr_vs_plain(sr, ref, dtype):
+    """The model phase's agreement of a forward with its plain version:
+    bf16 the PSNR over the plain output's range (ok at or above
+    ``BF16_MODEL_PSNR_FLOOR_DB``), fp32 the worst |k - p| - rtol·|p| -
+    atol under ``FP32_MODEL_TOL`` (ok at or below 0): (value, ok)."""
+    sr, ref = sr.float(), ref.float()
+    if dtype == "bfloat16":
+        mse = ((sr - ref) ** 2).mean().item()
+        span = (ref.max() - ref.min()).item()
+        db = 10 * math.log10(span ** 2 / mse) if mse > 0 else float("inf")
+        return db, db >= BF16_MODEL_PSNR_FLOOR_DB
+    atol, rtol = FP32_MODEL_TOL
+    worst = ((sr - ref).abs() - rtol * ref.abs()).max().item() - atol
+    return worst, worst <= 0
+
+
+def eval_batch_phase():
+    """``train.steps.eval_batch`` of the full-width generator (seeded
+    weights) on four seeded 192² uint8 HR frames, kernels against plain,
+    in bf16 and fp32, then once more with a fault planted into the
+    kernel's weights; see the module docstring."""
+    import numpy as np
+    import torch
+
+    from super_resolution_tpu_torch.bench import SEED_INIT
+    from super_resolution_tpu_torch.config import (
+        GeneratorConfig,
+        TrainConfig,
+    )
+    from super_resolution_tpu_torch.device import no_tf32
+    from super_resolution_tpu_torch.models.rrdb import RRDBNet
+    from super_resolution_tpu_torch.ops.dense_block import (
+        LAUNCHES_PER_BLOCK,
+        dense_block,
+    )
+
+    gcfg = GeneratorConfig(init=SEED_INIT)    # 23 blocks, 64 / 32
+    sd = RRDBNet(gcfg, torch.Generator().manual_seed(0)).state_dict()
+    hr = np.random.default_rng(6).integers(0, 256, (4, 192, 192, 3),
+                                           dtype=np.uint8)
+    want = gcfg.n_blocks * gcfg.n_dense * LAUNCHES_PER_BLOCK
+    res = {}
+    for dtype, limit in EVAL_BATCH_PLAIN_DB.items():
+        cfg = TrainConfig(generator=gcfg, compute_dtype=dtype)
+        runs = {}
+        with no_tf32():
+            with PlainKernels():
+                plain, sr_plain = eval_batch_sr(cfg, sd, hr)
+            for name, fault in (("kernel", None), ("fault", drop_centre_tap)):
+                with CheckedDenseBlock(dtype, fault) as block:
+                    dense_block.launches = 0
+                    psnr, sr = eval_batch_sr(cfg, sd, hr)
+                    launches = dense_block.launches
+                agree, sr_ok = sr_vs_plain(sr, sr_plain, dtype)
+                runs[name] = dict(
+                    psnr=psnr, delta_db=abs(psnr - plain),
+                    block_excess=block.worst(), sr_vs_plain=agree,
+                    sr_ok=sr_ok, shape=list(sr.shape),
+                    finite=bool(torch.isfinite(sr).all()), launches=launches)
+        res[dtype] = dict(psnr_plain=plain, limit_db=limit, **runs)
+        print(f"[eval-batch] {dtype} (block excess: worst |k - p| - "
+              f"rtol·|p| - atol at {TOL[dtype]}, > 0 fails; SR vs plain: "
+              + ("PSNR over the range, floor "
+                 f"{BF16_MODEL_PSNR_FLOOR_DB} dB" if dtype == "bfloat16"
+                 else f"worst excess at {FP32_MODEL_TOL}, > 0 fails")
+              + "; the fault: conv 2's centre tap dropped): "
+              f"{json.dumps(res[dtype])}", flush=True)
+        k, f = runs["kernel"], runs["fault"]
+        if k["launches"] != want or k["shape"] != [4, 192, 192, 3] or \
+                not (k["finite"] and math.isfinite(k["psnr"])
+                     and k["delta_db"] <= limit and k["block_excess"] <= 0
+                     and k["sr_ok"]):
+            fail(f"eval_batch {dtype}: {res[dtype]} (want {want} launches)")
+        if not f["block_excess"] > 0 or (dtype == "float32" and f["sr_ok"]):
+            fail(f"eval_batch {dtype}: the planted fault passed the "
+                 f"checks: {f}")
+    res["launches"] = sum(res[d]["kernel"]["launches"]
+                          for d in EVAL_BATCH_PLAIN_DB)
+    return res
+
+
 def export_phase(ck, work, serve_sd, smi):
     """``cli export`` of the train phase's checkpoint directory ``ck``
     with the default halo sweep and ``--val_dir`` (the eval phase's
@@ -1905,6 +2139,7 @@ def impls_phase(frame):
 
     import super_resolution_tpu_torch.models.rrdb as rrdb
     from super_resolution_tpu_torch import cli
+    from super_resolution_tpu_torch.bench import SEED_INIT
     from super_resolution_tpu_torch.config import GeneratorConfig, TrainConfig
     from super_resolution_tpu_torch.ops.conv3x3 import conv3x3_cf
     from super_resolution_tpu_torch.parallel.tiling import plan_tiles
@@ -2148,6 +2383,7 @@ def contract_phase():
     import torch
 
     import super_resolution_tpu_torch.models.rrdb as rrdb
+    from super_resolution_tpu_torch.bench import SEED_INIT
     from super_resolution_tpu_torch.config import GeneratorConfig
     from super_resolution_tpu_torch.device import no_tf32
 
@@ -2674,6 +2910,7 @@ def polyphase_phase():
     import torch
 
     import super_resolution_tpu_torch.models.rrdb as rrdb
+    from super_resolution_tpu_torch.bench import SEED_INIT
     from super_resolution_tpu_torch.config import (
         GeneratorConfig,
         TrainConfig,
@@ -2833,6 +3070,7 @@ def dp_cfg(dedup):
     """train_gan_dfm at full width with the torch_default init: a freshly
     drawn msra_scaled G gives a near-constant SR image, on which D's
     batch statistics cancel and summation order alone moves the step."""
+    from super_resolution_tpu_torch.bench import SEED_INIT
     from super_resolution_tpu_torch.config import preset
 
     cfg = preset("train_gan_dfm")
@@ -3132,6 +3370,7 @@ def build_cache_phase():
 
     import super_resolution_tpu_torch.models.rrdb as rrdb
     from super_resolution_tpu_torch import build
+    from super_resolution_tpu_torch.bench import SEED_INIT
     from super_resolution_tpu_torch.config import GeneratorConfig
 
     real = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
@@ -3295,6 +3534,16 @@ def convert_vgg_phase():
     return res
 
 
+# [grad-bench]: the whole forward + backward's dx of the kernels and of
+# the plain block, each at a distance from the float32 dx of at most
+# (1 + delta) times cuDNN's bf16 autograd's.  delta was fixed before the
+# first run that applied it.  bf16 rounding carried through the forward
+# puts all three near 0.029 of the largest |dx| (kernels over cuDNN
+# 0.9989 on an NVIDIA H100 80GB HBM3, 700 W); a wrong tap or a dropped
+# slice moves dx by a large fraction of its size, far past that.
+GRAD_BENCH_F32_DELTA = 0.25
+
+
 def grad_bench_phase():
     """``tools.grad_bench`` at its defaults, (16, 64, 48²) bf16: ms of
     lax and kernel, ``kernel_fold`` not ported, launches by the
@@ -3307,7 +3556,8 @@ def grad_bench_phase():
     float32 dx of the same bf16 values: a bf16 activation that rounds
     the other way in one forward moves the cotangent and dx through
     every later conv, so those differ by about as much as each differs
-    from float32."""
+    from float32.  The kernels' and the plain block's distances from the
+    float32 dx are held to (1 + ``GRAD_BENCH_F32_DELTA``) times cuDNN's."""
     import importlib
     import re
 
@@ -3384,6 +3634,16 @@ def grad_bench_phase():
              f"{res['bwd_kernel_vs_plain']} of the largest |dx| from the "
              f"plain backward's on the same buffer and cotangent (bound "
              f"2^-6)")
+    bound = (1.0 + GRAD_BENCH_F32_DELTA) * res["lax_vs_f32"]
+    print(f"[grad-bench] distance from the float32 dx: kernels "
+          f"{res['kernel_vs_f32']:.6f}, plain {res['plain_vs_f32']:.6f}, "
+          f"bound (1 + {GRAD_BENCH_F32_DELTA}) x cuDNN's "
+          f"{res['lax_vs_f32']:.6f} = {bound:.6f}", flush=True)
+    for k in ("kernel_vs_f32", "plain_vs_f32"):
+        if not res[k] <= bound:
+            fail(f"grad_bench: {k} {res[k]} above (1 + "
+                 f"{GRAD_BENCH_F32_DELTA}) x lax_vs_f32 "
+                 f"{res['lax_vs_f32']}")
     if calls == 0 or launches["dense_block"] != calls * fwd_launches(5) \
             or launches["dense_block_bwd"] != calls * bwd_launches(
                 5, torch.bfloat16):
@@ -3656,10 +3916,9 @@ def main() -> int:
               "only on the card", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip()
+    from super_resolution_tpu_torch.bench import card_line
+
+    smi = card_line()
     print(f"[card] {smi}")
     print(f"[card] torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, {torch.cuda.get_device_name(0)}"
@@ -3689,7 +3948,12 @@ def main() -> int:
 
     kern = kernel_phase()
     kern_bwd = bwd_kernel_phase()
-    model_phase()
+    model = model_phase()
+    t_new = time.perf_counter()
+    bench = bench_phase(model["ms"], smi)
+    evb = eval_batch_phase()
+    print(f"[bench+eval-batch] the two phases took "
+          f"{time.perf_counter() - t_new:.1f} s", flush=True)
     serve, frame = serve_phase()
     with tempfile.TemporaryDirectory() as work:
         ck = os.path.join(work, "ck")
@@ -3757,10 +4021,14 @@ def main() -> int:
         "source": "super_resolution_tpu_torch/csrc/dense_block.cu",
         "replaces": REPLACES,
         # the user's entry points, each counted from 0: cli upscale and
-        # cli serve --once, then cli train, then cli eval
+        # cli serve --once, then cli train, then cli eval, the bench and
+        # eval_batch
         "launches": serve_launches + train["fwd_launches"]
-        + evals["launches"] + dp_fwd + tools_path["dense_block"],
+        + evals["launches"] + dp_fwd + tools_path["dense_block"]
+        + bench["launches"]["dense_block"] + evb["launches"],
         "launches_serve_path": serve_launches,
+        "launches_bench_path": bench["launches"]["dense_block"],
+        "launches_eval_batch_path": evb["launches"],
         "launches_train_path": train["fwd_launches"],
         "launches_eval_path": evals["launches"],
         "launches_train_dp_path": dp_fwd,

@@ -21,6 +21,9 @@ release shape.  :func:`import_discriminator` and
 discriminator naming to and from the port's ``Discriminator``, with its
 BatchNorm statistics.
 
+:func:`import_vgg` turns a torchvision ``vgg19.features`` state dict
+into the port's VGG trunk's.
+
 :func:`state_dict_from_flax` carries the JAX package's generator tree
 across (HWIO → OIHW), :func:`discriminator_state_dict_from_flax` and
 :func:`vgg_state_dict_from_flax` the discriminator (with its BatchNorm
@@ -33,7 +36,7 @@ are not read here.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -348,6 +351,36 @@ def vgg_state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
     for name, node in params.items():
         _conv_from_flax(node, name, sd)
+    return sd
+
+
+# torchvision ``vgg19.features`` indices of the 16 convs through conv5_4
+VGG_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 16, 19, 21, 23, 25, 28, 30, 32, 34)
+
+
+def vgg_convs(state_dict) -> Iterator[Tuple[object, object]]:
+    """(weight, bias) of each of the 16 convs through conv5_4 of a
+    torchvision ``vgg19.features`` state dict, in conv order, as stored:
+    under ``features.{idx}.*``, else under the bare ``{idx}.*``.  A
+    missing conv raises a KeyError naming its index."""
+    for idx in VGG_CONV_IDX:
+        for prefix in (f"features.{idx}", str(idx)):
+            if f"{prefix}.weight" in state_dict:
+                break
+        else:
+            raise KeyError(f"conv at features index {idx} not found")
+        yield state_dict[f"{prefix}.weight"], state_dict[f"{prefix}.bias"]
+
+
+def import_vgg(state_dict) -> Dict[str, torch.Tensor]:
+    """torchvision ``vgg19.features`` state dict (tensors or numpy arrays)
+    → the port's ``VGGFeatures`` state dict, ``conv{i}.weight`` (OIHW)
+    and ``conv{i}.bias``, float32: the JAX package's ``import_vgg``, and
+    the in-memory form of ``tools.convert_vgg`` + ``load_vgg_params``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for n, (w, b) in enumerate(vgg_convs(state_dict)):
+        sd[f"conv{n}.weight"] = _tensor(w).contiguous()
+        sd[f"conv{n}.bias"] = _tensor(b)
     return sd
 
 

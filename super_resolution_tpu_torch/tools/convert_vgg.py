@@ -21,7 +21,7 @@ import sys
 import numpy as np
 import torch
 
-VGG_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 16, 19, 21, 23, 25, 28, 30, 32, 34)
+from super_resolution_tpu_torch.import_torch import vgg_convs
 
 
 def convert(src: str, dst: str) -> None:
@@ -29,16 +29,9 @@ def convert(src: str, dst: str) -> None:
     if hasattr(sd, "state_dict"):
         sd = sd.state_dict()
     out = {}
-    for n, idx in enumerate(VGG_CONV_IDX):
-        for prefix in (f"features.{idx}", str(idx)):
-            if f"{prefix}.weight" in sd:
-                w = sd[f"{prefix}.weight"].numpy()
-                b = sd[f"{prefix}.bias"].numpy()
-                break
-        else:
-            raise KeyError(f"conv at features index {idx} not found in {src}")
-        out[f"conv{n}_kernel"] = w.transpose(2, 3, 1, 0)  # OIHW -> HWIO
-        out[f"conv{n}_bias"] = b
+    for n, (w, b) in enumerate(vgg_convs(sd)):
+        out[f"conv{n}_kernel"] = w.numpy().transpose(2, 3, 1, 0)  # -> HWIO
+        out[f"conv{n}_bias"] = b.numpy()
     np.savez(dst, **out)
     print(f"wrote {dst}: {len(out) // 2} convs, "
           f"{sum(v.size for v in out.values()):,} params")

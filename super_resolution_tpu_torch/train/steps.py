@@ -1,5 +1,6 @@
 """Train steps (the JAX package's ``train/steps.py``): the L1 warmup
-pretrain step, the alternating G/D GAN step and the inference forward.
+pretrain step, the alternating G/D GAN step, the inference forward and
+the eval batch.
 
 - The warmup branch is host-side control flow: the loop picks
   :func:`make_pretrain_step` or :func:`make_gan_step` by step count.
@@ -42,6 +43,7 @@ from super_resolution_tpu_torch.losses import (
     l1_loss,
     mse,
     perceptual_loss,
+    psnr,
     psnr_of_mse,
     ragan_discriminator_loss,
     ragan_generator_loss,
@@ -239,3 +241,25 @@ def make_infer_fn(cfg: TrainConfig, state_dict: Dict[str, torch.Tensor],
             return model(lr)
 
     return infer
+
+
+def eval_batch(cfg: TrainConfig, g_state_dict: Dict[str, torch.Tensor],
+               hr_uint8, device: str | torch.device = "cuda") -> Metrics:
+    """Deterministic eval of a uint8 batch, as the JAX package's
+    ``eval_batch``: no augmentation, LR bicubic-synthesised from the HR
+    batch (or a paired ``{"hr", "lr"}`` dict), the generator of
+    :func:`make_infer_fn` under ``cfg.generator.conv_impl`` and
+    ``cfg.compute_dtype``, and the PSNR of the SR image, denormalised and
+    clipped to [0, 1], against the HR image.  ``hr_uint8`` (tensors or
+    numpy arrays) moves to ``device``."""
+    device = resolve_device(device)
+    if isinstance(hr_uint8, dict):
+        batch = {k: torch.as_tensor(v).to(device)
+                 for k, v in hr_uint8.items()}
+    else:
+        batch = torch.as_tensor(hr_uint8).to(device)
+    batch = preprocess_batch(batch, cfg.data, augment=False)
+    sr = make_infer_fn(cfg, g_state_dict, device)(batch["lr"])
+    mean, std = cfg.data.normalize_mean, cfg.data.normalize_std
+    sr01 = denormalize(sr, mean, std).clamp(0.0, 1.0)
+    return {"psnr": psnr(sr01, denormalize(batch["hr"], mean, std))}

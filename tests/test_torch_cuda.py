@@ -3,7 +3,8 @@ forward (NCHW and NHWC entries) and backward, the single-conv kernel,
 the experiment variants v3–v6 routed to the dense-block kernel and the
 int8 kernel of v8, against their plain versions, their launch counts and
 input checks, and the generator under every conv impl (lax included)
-with either tail, a training step and the CLI on CUDA.  Marked
+with either tail, a training step, the CLI, ``eval_batch`` and the
+headline bench on CUDA.  Marked
 ``cuda``; each skips where torch sees no CUDA device.  On a machine
 with a card (no JAX needed there):
 
@@ -22,6 +23,7 @@ moves a sum over all pixels by far less than that).
 """
 
 import importlib
+import json
 import math
 import os
 
@@ -799,3 +801,38 @@ def test_polyphase_tail_on_the_card(cuda, impl):
     assert launches == want
     torch.testing.assert_close(outs["polyphase"], outs["naive"], atol=2e-5,
                                rtol=1e-5)
+
+
+# The last of the JAX package's surface on the card: eval_batch through
+# the dense-block kernel against the CPU, and the headline bench.
+
+def test_eval_batch_on_the_card_matches_the_cpu(cuda):
+    from super_resolution_tpu_torch.config import TrainConfig
+    from super_resolution_tpu_torch.train.steps import eval_batch
+
+    gcfg = GeneratorConfig(n_blocks=2, filters=32, growth=16,
+                           init="torch_default")
+    sd = rrdb.RRDBNet(gcfg, torch.Generator().manual_seed(3)).state_dict()
+    cfg = TrainConfig(generator=gcfg, compute_dtype="float32")
+    hr = np.random.default_rng(3).integers(0, 256, (2, 64, 64, 3),
+                                           dtype=np.uint8)
+    ref = eval_batch(cfg, sd, hr, device="cpu")["psnr"]
+    before = dense_block.launches
+    got = eval_batch(cfg, sd, hr, device=cuda)["psnr"]
+    assert got.device.type == "cuda"
+    assert dense_block.launches - before == 2 * 3 * LAUNCHES_PER_BLOCK
+    assert abs(float(got) - float(ref)) <= 1e-3
+
+
+def test_bench_runs_through_the_kernel(cuda, capsys):
+    from super_resolution_tpu_torch import bench
+
+    gcfg = GeneratorConfig(n_blocks=2, init=bench.SEED_INIT,
+                           conv_impl="pallas_cf")
+    res = bench.run(gcfg, batch=2, tile=32, iters=2, device=cuda)
+    line = json.loads(capsys.readouterr().out.strip())
+    assert line == res["result"]
+    assert list(line) == ["metric", "value", "unit", "vs_baseline"]
+    assert math.isfinite(line["value"]) and line["value"] > 0
+    assert res["launches"] == {"dense_block": res["forwards"] * 2 * 3
+                               * LAUNCHES_PER_BLOCK}

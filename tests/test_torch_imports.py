@@ -1,8 +1,14 @@
 """The port stands alone: no module of ``super_resolution_tpu_torch``,
 and not ``chip_smoke.py``, imports JAX, Flax, Optax, Orbax or the JAX
-package.  Read with ``ast``, so nothing is imported to check it."""
+package.  Read with ``ast``, so nothing is imported to check it.
+
+And the port has the JAX package's public surface: every name the JAX
+package's ``__init__`` files export, and each function of the last
+slice, imports from the same path in both packages, except the JAX
+idioms that ROADMAP.md lists as not ported."""
 
 import ast
+import importlib
 import os
 
 import pytest
@@ -39,6 +45,7 @@ def _imported_modules(path):
 def test_port_has_the_files_it_should():
     rel = {os.path.relpath(p, ROOT) for p in _port_files()}
     for want in ("chip_smoke.py", "super_resolution_tpu_torch/cli.py",
+                 "super_resolution_tpu_torch/bench.py",
                  "super_resolution_tpu_torch/serve.py",
                  "super_resolution_tpu_torch/models/rrdb.py",
                  "super_resolution_tpu_torch/ops/dense_block.py",
@@ -77,3 +84,62 @@ def test_no_jax_imports(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+# the names ported last that no JAX ``__init__`` re-exports (those are
+# test_package_exports_what_the_jax_package_does's), at the JAX
+# package's paths (ROADMAP.md Queue 1)
+SURFACE = [
+    ("", "__version__"),
+    ("train.steps", "eval_batch"),
+    ("import_torch", "import_vgg"),
+]
+# JAX idioms the port does not have (ROADMAP.md Queue 1, "Not to port")
+NOT_PORTED = {"parallel": {"BATCH_AXIS", "batch_sharded", "make_mesh",
+                           "replicated", "shard_batch_iter",
+                           "shard_state"}}
+PACKAGES = ("", "models", "ops", "train", "parallel", "data")
+
+
+def _module(package, path):
+    return importlib.import_module(".".join(p for p in (package, path) if p))
+
+
+@pytest.mark.parametrize("path,name", SURFACE,
+                         ids=[f"{p or 'top'}.{n}" for p, n in SURFACE])
+def test_surface_name_in_both_packages(path, name):
+    ours = getattr(_module("super_resolution_tpu_torch", path), name)
+    theirs = getattr(_module("super_resolution_tpu", path), name)
+    if name == "__version__":
+        assert ours == theirs
+    else:
+        assert callable(ours) and callable(theirs)
+
+
+@pytest.mark.parametrize("path", PACKAGES, ids=lambda p: p or "top")
+def test_package_exports_what_the_jax_package_does(path):
+    jax_init = os.path.join(ROOT, "super_resolution_tpu", path, "__init__.py")
+    with open(jax_init) as f:
+        tree = ast.parse(f.read())
+    exported = {a.asname or a.name for node in tree.body
+                if isinstance(node, ast.ImportFrom) for a in node.names}
+    ours = _module("super_resolution_tpu_torch", path)
+    missing = sorted(n for n in exported - NOT_PORTED.get(path, set())
+                     if not hasattr(ours, n))
+    assert not missing, f"super_resolution_tpu_torch.{path} lacks {missing}"
+
+
+def test_top_level_import_stays_cheap():
+    """Importing the package builds no kernel and loads neither the
+    models nor the CLI (checked in a fresh interpreter)."""
+    import json
+    import subprocess
+    import sys
+
+    code = ("import json, sys, super_resolution_tpu_torch; "
+            "print(json.dumps(sorted(m for m in sys.modules "
+            "if m.startswith('super_resolution_tpu_torch'))))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120).stdout
+    assert json.loads(out) == ["super_resolution_tpu_torch",
+                         "super_resolution_tpu_torch.config"]
