@@ -3333,7 +3333,8 @@ def profile_dir_phase():
              "--steps", "2", "--warmup_batches", "1", "--checkpoint_dir",
              os.path.join(tmp, "ck"), "--profile_dir", pdir])
         secs = time.perf_counter() - t0
-        traces = [n for n in os.listdir(pdir) if n.endswith(".json")] \
+        traces = [n for n in os.listdir(pdir)
+                  if n.endswith(".pt.trace.json")] \
             if os.path.isdir(pdir) else []
         if rc != 0 or len(traces) != 1:
             fail(f"cli train --profile_dir: rc {rc}, traces {traces}")
@@ -3729,7 +3730,8 @@ def profile_gan_phase():
     with tempfile.TemporaryDirectory() as tmp:
         out = run_tool("profile_gan", ["--impl", "pallas_cf", "--trace",
                                        tmp, "--trace_steps", "2"], 900)
-        traces = [n for n in os.listdir(tmp) if n.endswith(".json")]
+        traces = [n for n in os.listdir(tmp)
+                  if n.endswith(".pt.trace.json")]
         if len(traces) != 1:
             fail(f"profile_gan --trace wrote {traces}")
         with open(os.path.join(tmp, traces[0])) as f:

@@ -81,6 +81,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from super_resolution_tpu_torch.device import no_tf32
+from super_resolution_tpu_torch.metrics import span
 
 N_CONVS = 5                    # convs of the ESRGAN block (any n >= 1 runs)
 TILE = 16                      # the kernels' square pixel tile
@@ -589,7 +590,8 @@ def dense_block(x: torch.Tensor, weights: Sequence[torch.Tensor],
                 slope: float, save_acts: bool = False):
     """One dense block on NCHW ``x`` (float32 or bfloat16) with packed
     weights.  CUDA tensors launch the kernel (and count the launches in
-    ``dense_block.launches``); CPU tensors take the plain version.
+    ``dense_block.launches``), inside the device span
+    ``ops.dense_block``; CPU tensors take the plain version.
     ``save_acts=True`` returns ``(y, feature buffer)``."""
     _check(x, weights, biases)
     if x.device.type == "cpu":
@@ -597,8 +599,9 @@ def dense_block(x: torch.Tensor, weights: Sequence[torch.Tensor],
                              slope=slope, save_acts=save_acts)
     if x.device.type != "cuda":
         raise ValueError(f"dense_block runs on cuda or cpu, not {x.device}")
-    y, buf = _launch_block(dense_block, x, x.permute(0, 2, 3, 1), weights,
-                           biases, res_scale, slope, nhwc=False)
+    with span("ops.dense_block", x.device):
+        y, buf = _launch_block(dense_block, x, x.permute(0, 2, 3, 1),
+                               weights, biases, res_scale, slope, nhwc=False)
     return (y, buf) if save_acts else y
 
 
@@ -814,7 +817,8 @@ def dense_block_bwd(feats: torch.Tensor, weights: Sequence[torch.Tensor],
     buffer (``dense_block(..., save_acts=True)``), the packed weights
     and the NCHW cotangent ``g`` of y: ``(dx, [dW_k (9, cout, cin) f32],
     [db_k f32])``.  CUDA tensors launch the backward kernels (counted in
-    ``dense_block_bwd.launches``) or raise — bf16 the Hopper design,
+    ``dense_block_bwd.launches``, inside the device span
+    ``ops.dense_block_bwd``) or raise — bf16 the Hopper design,
     float32 (the parity mode) its own kernels; this is the one place the
     two part — CPU tensors take :func:`dense_block_bwd_plain`."""
     lay = _check_bwd(feats, weights, g)
@@ -825,7 +829,8 @@ def dense_block_bwd(feats: torch.Tensor, weights: Sequence[torch.Tensor],
         raise ValueError(f"dense_block_bwd runs on cuda or cpu, not "
                          f"{feats.device}")
     run = _bwd_bf16 if feats.dtype == torch.bfloat16 else _bwd_f32
-    return run(feats, weights, g, lay, res_scale, slope)
+    with span("ops.dense_block_bwd", feats.device):
+        return run(feats, weights, g, lay, res_scale, slope)
 
 
 dense_block_bwd.launches = 0

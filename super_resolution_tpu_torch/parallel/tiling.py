@@ -29,6 +29,8 @@ from typing import Callable, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from super_resolution_tpu_torch.metrics import count, span
+
 
 def _axis_offsets(n: int, tile: int, stride: int) -> tuple:
     """Clamped 1-D tile offsets covering [0, n): multiples of ``stride``
@@ -167,7 +169,16 @@ def tiled_upscale(
     is blended on ``devices[0]``.  ``align=(align_h, align_w)`` clamps
     the effective tile sizes down to multiples of the alignments when the
     frame exceeds them; ``bucket_h`` quantises the tile height
-    (:func:`bucket_tile_h`).  Frames that fit in one tile run whole."""
+    (:func:`bucket_tile_h`).  Frames that fit in one tile run whole.
+
+    While recording (:mod:`metrics`) the call is the device span
+    ``tiling.tiled_upscale``, with children ``tiling.extract``, one
+    ``tiling.generator`` per batch call (or the whole-frame call) and
+    ``tiling.blend``; it counts the frame's LR pixels
+    (``tiling.frame_lr_px``), the LR pixels the generator runs over
+    (``tiling.generator_lr_px``: every tile's, or the frame's when it
+    runs whole) and the tiles run (``tiling.tiles``, 1 for a whole
+    frame)."""
     h, w, _ = lr.shape
     tile_h = tile
     tile_w = tile if tile_w is None else tile_w
@@ -188,28 +199,39 @@ def tiled_upscale(
         if len(replicas) != len(devices):
             raise ValueError(f"{len(replicas)} replicas for "
                              f"{len(devices)} devices")
-    if h <= tile_h and w <= tile_w:
-        return replicas[0](lr[None].to(devices[0]))[0]
+    count("tiling.frame_lr_px", h * w)
+    with span("tiling.tiled_upscale", lr.device):
+        if h <= tile_h and w <= tile_w:
+            count("tiling.generator_lr_px", h * w)
+            count("tiling.tiles")
+            with span("tiling.generator", devices[0]):
+                return replicas[0](lr[None].to(devices[0]))[0]
 
-    tiles, ((tile_h, tile_w), oys, oxs) = extract_tiles(lr, tile_h, halo,
-                                                        tile_w)
-    batches = [tiles[s:s + tile_batch]
-               for s in range(0, tiles.shape[0], tile_batch)]
-    sr_tiles = []
-    for g in range(0, len(batches), len(replicas)):
-        # every replica's batch is launched before any result is read
-        outs = [fn(b.to(dev, non_blocking=True))
-                for fn, dev, b in zip(replicas, devices,
-                                      batches[g:g + len(replicas)])]
-        sr_tiles += [o.to(devices[0]) for o in outs]
-    sr_tiles = torch.cat(sr_tiles)
-    py, px = _weight_profiles(oys, oxs, tile_h, tile_w, halo, scale,
-                              h * scale, w * scale)
-    ramp_len = 2 * halo * scale
-    grid = [(oy * scale, ox * scale) for oy in oys for ox in oxs]
-    return _blend_scatter(sr_tiles, _ramp(tile_h * scale, ramp_len),
-                          _ramp(tile_w * scale, ramp_len), py, px, grid,
-                          h * scale, w * scale)
+        with span("tiling.extract", lr.device):
+            tiles, ((tile_h, tile_w), oys, oxs) = extract_tiles(
+                lr, tile_h, halo, tile_w)
+        count("tiling.generator_lr_px", tiles.shape[0] * tile_h * tile_w)
+        count("tiling.tiles", tiles.shape[0])
+        batches = [tiles[s:s + tile_batch]
+                   for s in range(0, tiles.shape[0], tile_batch)]
+        sr_tiles = []
+        for g in range(0, len(batches), len(replicas)):
+            # every replica's batch is launched before any result is read
+            outs = []
+            for fn, dev, b in zip(replicas, devices,
+                                  batches[g:g + len(replicas)]):
+                with span("tiling.generator", dev):
+                    outs.append(fn(b.to(dev, non_blocking=True)))
+            sr_tiles += [o.to(devices[0]) for o in outs]
+        sr_tiles = torch.cat(sr_tiles)
+        py, px = _weight_profiles(oys, oxs, tile_h, tile_w, halo, scale,
+                                  h * scale, w * scale)
+        ramp_len = 2 * halo * scale
+        grid = [(oy * scale, ox * scale) for oy in oys for ox in oxs]
+        with span("tiling.blend", devices[0]):
+            return _blend_scatter(sr_tiles, _ramp(tile_h * scale, ramp_len),
+                                  _ramp(tile_w * scale, ramp_len), py, px,
+                                  grid, h * scale, w * scale)
 
 
 def _blend_scatter(sr_tiles: torch.Tensor, wy: np.ndarray, wx: np.ndarray,

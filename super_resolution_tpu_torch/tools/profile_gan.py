@@ -19,8 +19,16 @@ the first number is the host's and the second the card's.  D's running
 statistics are not updated by the components (the JAX tool throws its
 ``batch_stats`` away).  Then the full GAN step (host clock around
 ``FULL_STEPS`` steps, synchronised) with its launches per step, and the
-sum of the components.  ``--trace DIR`` writes a ``torch.profiler``
-trace of ``--trace_steps`` full steps into DIR.  ``--cf9``,
+sum of the components.  Then the same steps with the program's spans
+recording (:func:`metrics.recording`, no profiler): the step's ms with
+recording on beside off (the recording's cost; ``ON_OFF_PAIRS`` runs of
+each in turns, medians), and the phase table of the last run
+from :func:`metrics.span_report`, each span's calls, host ms per step
+and share of ``train.gan_step`` (device ms per step for the device
+spans), and the cost of one span call, off, recording, recording with
+timing events on the card, and under a profiler.  ``--trace DIR``
+writes a ``torch.profiler`` trace of ``--trace_steps`` full steps, and
+their spans (``<host>_<pid>.spans.json``), into DIR.  ``--cf9``,
 ``--bwd_cap``, ``--fwd_carry`` and ``--bwd_carry`` tune TPU mechanisms
 and are refused.
 """
@@ -51,6 +59,33 @@ from super_resolution_tpu_torch.tools import (
 
 ITERS = 20
 FULL_STEPS = 20
+ON_OFF_PAIRS = 3
+SPAN_CALLS = 20000
+
+
+def span_cost_us(device: torch.device, calls: int = SPAN_CALLS):
+    """Host µs per ``with span(...)`` call: recording off, recording,
+    recording with timing events (on the card), under a profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from super_resolution_tpu_torch.metrics import recording, span
+
+    def per_call(dev):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            with span("profile_gan.cost", dev):
+                pass
+        return (time.perf_counter() - t0) / calls * 1e6
+
+    out = {"off": per_call(False)}
+    with recording():
+        out["on"] = per_call(False)
+        if device.type == "cuda":
+            out["on_device"] = per_call(device)
+            torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU]):
+        out["profiler"] = per_call(False)
+    return out
 
 
 def main(argv=None):
@@ -90,7 +125,11 @@ def main(argv=None):
         ragan_discriminator_loss,
         ragan_generator_loss,
     )
-    from super_resolution_tpu_torch.metrics import profiler_trace
+    from super_resolution_tpu_torch.metrics import (
+        profiler_trace,
+        recording,
+        span_report,
+    )
     from super_resolution_tpu_torch.models.rrdb import RRDBNet
     from super_resolution_tpu_torch.train.state import (
         apply_update,
@@ -209,6 +248,39 @@ def main(argv=None):
           flush=True)
     acc = sum(t for name, t, _ in rows if not name.startswith(" "))
     print(f"{'sum of components':34s} {acc:8.2f} ms", flush=True)
+
+    def steps_s() -> float:
+        t0 = time.perf_counter()
+        for _ in range(FULL_STEPS):
+            step(state, hr_u8)
+        host_sync(device)
+        return (time.perf_counter() - t0) / FULL_STEPS
+
+    # recording off and on in turns: the host's speed drifts
+    off, on = [], []
+    for _ in range(ON_OFF_PAIRS):
+        off.append(steps_s())
+        with recording():
+            on.append(steps_s())
+            spans = span_report()["spans"]      # the last run's
+    t_off, t_on = float(np.median(off)), float(np.median(on))
+    print(f"{'FULL GAN step, spans recording':34s} {t_on * 1e3:8.2f} ms "
+          f"(off {t_off * 1e3:.2f} ms, on-cost {(t_on - t_off) * 1e3:+.2f} "
+          f"ms; medians of {ON_OFF_PAIRS} runs each in turns)", flush=True)
+    whole = spans["train.gan_step"]["host_s"]
+    print("phase table (spans, per step; share of train.gan_step):")
+    for name in ["train.gan_step", *(n for n in spans
+                                     if n != "train.gan_step")]:
+        s = spans[name]
+        dev = s.get("device_s")
+        dev_s = "" if dev is None else \
+            f"  device {dev / FULL_STEPS * 1e3:8.2f} ms"
+        print(f"  {name:28s} {s['calls'] / FULL_STEPS:6.1f} calls "
+              f"{s['host_s'] / FULL_STEPS * 1e3:8.2f} ms "
+              f"{100 * s['host_s'] / whole:6.1f} %{dev_s}", flush=True)
+    cost = span_cost_us(device)
+    print("span cost per call: " + "  ".join(
+        f"{k} {v:.3f} us" for k, v in cost.items()), flush=True)
 
     if args.trace:
         with profiler_trace(args.trace):

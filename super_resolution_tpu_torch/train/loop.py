@@ -42,7 +42,11 @@ from super_resolution_tpu_torch.data import (
     to_uint8_image,
 )
 from super_resolution_tpu_torch.device import resolve_device
-from super_resolution_tpu_torch.metrics import MetricLogger, Throughput
+from super_resolution_tpu_torch.metrics import (
+    MetricLogger,
+    Throughput,
+    span,
+)
 from super_resolution_tpu_torch.ops.resize import bicubic_resize
 from super_resolution_tpu_torch.parallel import dp, multihost
 from super_resolution_tpu_torch.train.state import (
@@ -212,12 +216,13 @@ def train(cfg: TrainConfig,
     gan_step = make_gan_step(cfg) if cfg.loss.lambda_adv > 0 else None
 
     logger = MetricLogger(log_dir if primary else None, stdout=primary)
-    meter = Throughput(n_chips=dp.world_size())
+    meter = Throughput(n_chips=dp.world_size(), device=device)
     log_every = 50
     n_consumed = 0
 
     for step_idx in range(start_step, total_steps):
-        batch = next(data_iter)
+        with span("train.data_wait"):
+            batch = next(data_iter)
         n_consumed += 1
         pulled_states.pop(n_consumed - 1, None)   # keep current and ahead
         in_warmup = gan_step is None or step_idx < cfg.warmup_batches
@@ -229,8 +234,6 @@ def train(cfg: TrainConfig,
 
         done = step_idx + 1
         if done % log_every == 0 or done == total_steps:
-            if device.type == "cuda":     # the meter reads finished work
-                torch.cuda.synchronize(device)
             logger.flush(done, "warmup" if in_warmup else "gan",
                          extra={"mp_per_sec_per_chip":
                                 meter.mp_per_sec_per_chip()})

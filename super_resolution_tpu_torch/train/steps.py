@@ -16,6 +16,13 @@ the eval batch.
   already normalised pair.  Metrics are 0-dim tensors on the device (no
   synchronisation here).  After a step every parameter's ``.grad`` holds
   the gradient that was applied.
+- While recording (:mod:`metrics`) a step is the span
+  ``train.gan_step`` (``train.pretrain_step``) with one child span per
+  phase: ``train.prep``, ``train.g_forward``, ``train.d_real``,
+  ``train.g_loss`` (child ``train.vgg``), ``train.g_backward``,
+  ``train.d_grads``, ``train.grad_allreduce`` (both models' gradients,
+  after both are taken), ``train.adam_g``, ``train.adam_d``,
+  ``train.ema`` and ``train.step_metrics``, each where it applies.
 - Global-batch semantics, as in the JAX package: under data
   parallelism (:mod:`parallel.dp`) a rank's batch is its rows of the
   global batch, the RaGAN batch means and D's batch statistics are the
@@ -38,6 +45,7 @@ from super_resolution_tpu_torch.data.augment import (
     preprocess_batch,
 )
 from super_resolution_tpu_torch.device import no_tf32, resolve_device
+from super_resolution_tpu_torch.metrics import span
 from super_resolution_tpu_torch.losses import (
     feature_matching_loss,
     l1_loss,
@@ -108,7 +116,7 @@ def global_norm(grads) -> torch.Tensor:
         torch.stack(torch._foreach_norm(list(grads))))
 
 
-def _with_prep(cfg: TrainConfig, core) -> StepFn:
+def _with_prep(cfg: TrainConfig, core, name: str) -> StepFn:
     def full_f32(state: GANTrainState, lr, hr) -> Metrics:
         # float32 convolutions stay float32 in the backward too (the
         # models switch TF32 off only around their forwards)
@@ -116,9 +124,11 @@ def _with_prep(cfg: TrainConfig, core) -> StepFn:
             return core(state, lr, hr)
 
     def step(state: GANTrainState, batch_uint8) -> Metrics:
-        batch = preprocess_batch(batch_uint8, cfg.data, state.aug_rng,
-                                 part=data_part())
-        return full_f32(state, batch["lr"], batch["hr"])
+        with span(name):
+            with span("train.prep"):
+                batch = preprocess_batch(batch_uint8, cfg.data,
+                                         state.aug_rng, part=data_part())
+            return full_f32(state, batch["lr"], batch["hr"])
 
     step.core = full_f32
     return step
@@ -130,18 +140,26 @@ def make_pretrain_step(cfg: TrainConfig) -> StepFn:
 
     def core(state: GANTrainState, lr, hr) -> Metrics:
         g_params = list(state.g.parameters())
-        sr = state.g(lr)
-        pix = l1_loss(sr, hr)
-        grads = average_gradients(torch.autograd.grad(pix, g_params))
-        apply_update(state.g_opt, sched_g, grads)
-        ema_update(cfg, state.g_ema, state.g)
+        with span("train.g_forward"):
+            sr = state.g(lr)
+        with span("train.g_loss"):
+            pix = l1_loss(sr, hr)
+        with span("train.g_backward"):
+            grads = torch.autograd.grad(pix, g_params)
+        with span("train.grad_allreduce"):
+            grads = average_gradients(grads)
+        with span("train.adam_g"):
+            apply_update(state.g_opt, sched_g, grads)
+        with span("train.ema"):
+            ema_update(cfg, state.g_ema, state.g)
         state.step += 1
-        return _global_metrics(
-            {"loss_pixel": pix.detach(),
-             "mse01": _mse01(cfg, sr.detach(), hr)},
-            grad_norm_g=global_norm(grads))
+        with span("train.step_metrics"):
+            return _global_metrics(
+                {"loss_pixel": pix.detach(),
+                 "mse01": _mse01(cfg, sr.detach(), hr)},
+                grad_norm_g=global_norm(grads))
 
-    return _with_prep(cfg, core)
+    return _with_prep(cfg, core, "train.pretrain_step")
 
 
 def make_gan_step(cfg: TrainConfig) -> StepFn:
@@ -166,7 +184,8 @@ def make_gan_step(cfg: TrainConfig) -> StepFn:
         parts = {"loss_pixel": pix, "loss_adv": adv}
         total = lcfg.lambda_adv * adv + lcfg.lambda_pixel * pix
         if state.vgg is not None:
-            parts["loss_percep"] = perceptual_loss(state.vgg, sr, hr)
+            with span("train.vgg"):
+                parts["loss_percep"] = perceptual_loss(state.vgg, sr, hr)
         elif dfm:
             parts["loss_percep"] = feature_matching_loss(ff, fr)
         if "loss_percep" in parts:
@@ -178,50 +197,62 @@ def make_gan_step(cfg: TrainConfig) -> StepFn:
         g_params = list(state.g.parameters())
         d_params = list(state.d.parameters())
         track = cfg.bn_track_g_step
-        sr = state.g(lr)
+        with span("train.g_forward"):
+            sr = state.g(lr)
         sr_detached = sr.detach()
 
         if dedup:
             # D's gradients first, from the parameters and statistics the
             # reference's D step reads; its D(hr) forward also gives the
             # G loss its real logits and features
-            pr, fr = state.d(hr, train=True, return_features=True)
-            pf_bar = state.d(sr_detached, train=True)
-            d_loss = ragan_discriminator_loss(pr, pf_bar)
-            d_grads = torch.autograd.grad(d_loss, d_params)
-            sr_in = sr_detached.clone().requires_grad_(True)
-            total, parts = g_loss(state, sr_in, hr, pr.detach(),
-                                  [f.detach() for f in fr], False)
-            (dsr,) = torch.autograd.grad(total, sr_in)
-            g_grads = torch.autograd.grad(sr, g_params, dsr)
-            d_grads = average_gradients(d_grads)
-            g_grads = average_gradients(g_grads)
+            with span("train.d_real"):
+                pr, fr = state.d(hr, train=True, return_features=True)
+            with span("train.d_grads"):
+                pf_bar = state.d(sr_detached, train=True)
+                d_loss = ragan_discriminator_loss(pr, pf_bar)
+                d_grads = torch.autograd.grad(d_loss, d_params)
+            with span("train.g_loss"):
+                sr_in = sr_detached.clone().requires_grad_(True)
+                total, parts = g_loss(state, sr_in, hr, pr.detach(),
+                                      [f.detach() for f in fr], False)
+            with span("train.g_backward"):
+                (dsr,) = torch.autograd.grad(total, sr_in)
+                g_grads = torch.autograd.grad(sr, g_params, dsr)
         else:
             # G's gradients: nothing of D(hr) carries a gradient to G
-            with torch.no_grad():
+            with span("train.d_real"), torch.no_grad():
                 pr, fr = state.d(hr, train=True, return_features=True,
                                  update_stats=track)
-            total, parts = g_loss(state, sr, hr, pr, fr, track)
-            g_grads = average_gradients(torch.autograd.grad(total,
-                                                            g_params))
+            with span("train.g_loss"):
+                total, parts = g_loss(state, sr, hr, pr, fr, track)
+            with span("train.g_backward"):
+                g_grads = torch.autograd.grad(total, g_params)
             # D's gradients on recomputed forwards, SR detached
-            pr = state.d(hr, train=True)
-            pf_bar = state.d(sr_detached, train=True)
-            d_loss = ragan_discriminator_loss(pr, pf_bar)
-            d_grads = average_gradients(torch.autograd.grad(d_loss,
-                                                            d_params))
+            with span("train.d_grads"):
+                pr = state.d(hr, train=True)
+                pf_bar = state.d(sr_detached, train=True)
+                d_loss = ragan_discriminator_loss(pr, pf_bar)
+                d_grads = torch.autograd.grad(d_loss, d_params)
+        with span("train.grad_allreduce"):
+            d_grads = average_gradients(d_grads)
+            g_grads = average_gradients(g_grads)
 
-        apply_update(state.g_opt, sched_g, g_grads)
-        apply_update(state.d_opt, sched_d, d_grads)
-        ema_update(cfg, state.g_ema, state.g)
+        with span("train.adam_g"):
+            apply_update(state.g_opt, sched_g, g_grads)
+        with span("train.adam_d"):
+            apply_update(state.d_opt, sched_d, d_grads)
+        with span("train.ema"):
+            ema_update(cfg, state.g_ema, state.g)
         state.step += 1
-        metrics = {k: v.detach() for k, v in parts.items()}
-        metrics.update({"loss_d": d_loss.detach(),
-                        "mse01": _mse01(cfg, sr_detached, hr)})
-        return _global_metrics(metrics, grad_norm_g=global_norm(g_grads),
-                               grad_norm_d=global_norm(d_grads))
+        with span("train.step_metrics"):
+            metrics = {k: v.detach() for k, v in parts.items()}
+            metrics.update({"loss_d": d_loss.detach(),
+                            "mse01": _mse01(cfg, sr_detached, hr)})
+            return _global_metrics(metrics,
+                                   grad_norm_g=global_norm(g_grads),
+                                   grad_norm_d=global_norm(d_grads))
 
-    return _with_prep(cfg, core)
+    return _with_prep(cfg, core, "train.gan_step")
 
 
 def make_infer_fn(cfg: TrainConfig, state_dict: Dict[str, torch.Tensor],

@@ -101,6 +101,7 @@ def test_train_bench_lines(one_block, capsys):
 def test_profile_gan_lines(one_block, capsys, monkeypatch, tmp_path):
     monkeypatch.setattr(profile_gan, "ITERS", 1)
     monkeypatch.setattr(profile_gan, "FULL_STEPS", 1)
+    monkeypatch.setattr(profile_gan, "SPAN_CALLS", 100)
     out = _run(profile_gan, [*CPU, "--batch", "2", "--hr", "32", "--impl",
                              "pallas_cf", "--trace", str(tmp_path / "tr"),
                              "--trace_steps", "1"], capsys)
@@ -116,6 +117,15 @@ def test_profile_gan_lines(one_block, capsys, monkeypatch, tmp_path):
                      r"launches/step \{.*\}$", out, re.M)
     assert re.search(r"^sum of components +[\d.]+ ms$", out, re.M)
     assert len(list((tmp_path / "tr").glob("*.pt.trace.json"))) == 1
+    assert len(list((tmp_path / "tr").glob("*.spans.json"))) == 1
+    # the phase table from the spans, recording on against off
+    assert re.search(r"^FULL GAN step, spans recording +[\d.]+ ms \(off "
+                     r"[\d.]+ ms, on-cost [-+][\d.]+ ms", out, re.M)
+    for name in ("train.gan_step", "train.g_forward", "train.adam_g"):
+        assert re.search(rf"^  {re.escape(name)} +1\.0 calls +[\d.]+ ms "
+                         rf"+[\d.]+ %$", out, re.M), name
+    assert re.search(r"^span cost per call: off [\d.]+ us  on [\d.]+ us  "
+                     r"profiler [\d.]+ us$", out, re.M)
 
 
 TILED = argparse.Namespace(tile=40, halo=2, tile_batch=2, tile_w=16,
