@@ -32,6 +32,13 @@ and prints no result line:
    FMA kernels (15): dx, every dW and db, two runs bit for bit, the
    launches, the same times (library: autograd through five cuDNN
    convs), the kernels' device time and the bound.
+   chain (between the forward and the backward kernels): the RRDB trunk
+   on the chain (``RRDBNet.trunk``: three feature buffers, each block's
+   last launch writing the next block's input and the RRDB's residual)
+   against ``model.body``, block by block, bit for bit at the CLI's tile
+   batches (2, 64, 384, 384) and (2, 64, 300, 384) with 23 RRDB and at
+   (1, 64, 256, 256) with 6; 345 launches, 68 chained blocks and one
+   input copy at 23 RRDB; ms of both in turns.
 3. model: the full-width 23-block RRDBNet in bf16 on 8×128² LR tiles
    (seeded random weights) through ``train.steps.make_infer_fn``: the
    launch count of one forward, agreement with the same forward through
@@ -399,7 +406,7 @@ def ptxas_lines(build):
 
     pat = re.compile(r"conv3x3_wgmmaILi(\d+)ELi(\d+)E(13__nv_bfloat16|f)")
     lines = []
-    for name in ("dense_block", "conv3x3"):
+    for name in ("dense_block", "dense_block_chain", "conv3x3"):
         parts = []
         for k in build.ptxas_report(name):
             m = pat.search(k["kernel"])
@@ -622,6 +629,60 @@ def kernel_phase():
             fail(f"{name}: kernel disagrees with its plain version "
                  f"(max |err| {max_err}, tolerance atol {atol} + rtol "
                  f"{rtol}·|plain|)")
+    return results
+
+
+def chain_phase():
+    """The RRDB trunk on the chain (``RRDBNet.trunk``, one
+    ``dense_block_chain``) against the same trunk block by block
+    (``model.body``): bit for bit at the CLI's tile batches and in the
+    6-block model, 345 launches, 68 chained blocks and one input copy per
+    23-block forward, and ms of both in turns."""
+    import torch
+
+    import super_resolution_tpu_torch.models.rrdb as rrdb
+    from super_resolution_tpu_torch.bench import SEED_INIT
+    from super_resolution_tpu_torch.config import GeneratorConfig
+    from super_resolution_tpu_torch.metrics import recording, span_report
+
+    results = {}
+    for name, n_blocks, shape in [
+            ("cli_tile", 23, (2, 64, 384, 384)),
+            ("cli_tile_short", 23, (2, 64, 300, 384)),
+            ("anime6b", 6, (1, 64, 256, 256))]:
+        gcfg = GeneratorConfig(n_blocks=n_blocks, init=SEED_INIT)
+        model = rrdb.RRDBNet(gcfg, torch.Generator().manual_seed(
+            len(results))).cuda().prepare(torch.bfloat16)
+        fea = torch.randn(shape, generator=torch.Generator().manual_seed(
+            len(results))).cuda().to(torch.bfloat16)
+        with torch.inference_mode():
+            ref = model.body(fea)
+            with recording():
+                got = model.trunk(fea)
+                torch.cuda.synchronize()
+                counters = span_report()["counters"]
+            same = torch.equal(got, ref)
+            ms = turns({"plain": lambda: model.body(fea),
+                        "kernel": lambda: model.trunk(fea),
+                        "library": lambda: model.body(fea)}, 3)
+        n = n_blocks * gcfg.n_dense
+        want = {"launches.dense_block": 5 * n, "dense_block.chained": n - 1,
+                "dense_block.input_copies": 1}
+        got_counts = {k: counters.get(k, 0) for k in want}
+        results[name] = dict(shape=list(shape), blocks=n, bitwise=same,
+                             finite=bool(torch.isfinite(got.float()).all()),
+                             counters=got_counts,
+                             per_block_ms=(ms["plain"] + ms["library"]) / 2,
+                             chain_ms=ms["kernel"])
+        print("[chain] " + json.dumps({name: results[name]}), flush=True)
+        if not same:
+            diff = (got.float() - ref.float()).abs()
+            fail(f"{name}: the chained trunk differs from the per-block "
+                 f"path (max |d| {diff.max().item()}, "
+                 f"{(diff > 0).float().mean().item():.3g} of the values)")
+        if got_counts != want or not results[name]["finite"]:
+            fail(f"{name}: counters {got_counts}, want {want}, or the "
+                 f"trunk is not finite")
     return results
 
 
@@ -3949,6 +4010,7 @@ def main() -> int:
     tile_checks_phase()
 
     kern = kernel_phase()
+    chain_phase()
     kern_bwd = bwd_kernel_phase()
     model = model_phase()
     t_new = time.perf_counter()

@@ -26,7 +26,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, List
+from typing import Dict, Iterable, List, Sequence
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -34,6 +34,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 # kernel name -> source under csrc/
 SOURCES = {"dense_block": "dense_block.cu",
+           "dense_block_chain": "dense_block_chain.cu",
            "dense_block_bwd": "dense_block_bwd.cu",
            "conv3x3": "conv3x3.cu",
            "dense_block_int8": "dense_block_int8.cu"}
@@ -115,11 +116,19 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def build_all() -> None:
-    """Build every source that is not built yet, one nvcc each, all
-    started together."""
+def load_all(names: Sequence[str]) -> List[ctypes.CDLL]:
+    """The loaded libraries for ``names``, those not built yet built
+    together first."""
+    if any(n not in _loaded for n in names):
+        build_all(names)
+    return [load(n) for n in names]
+
+
+def build_all(names: Iterable[str] = SOURCES) -> None:
+    """Build every source (of ``names``) that is not built yet, one nvcc
+    each, all started together."""
     with _lock:
-        todo = {n: library_path(n) for n in SOURCES}
+        todo = {n: library_path(n) for n in names}
         started = {n: _start_nvcc(n, dst) for n, dst in todo.items()
                    if not os.path.exists(dst)}
         errors = []

@@ -1,8 +1,10 @@
 // The bf16 forward 3x3 SAME conv on Hopper (sm_90a): TMA loads into
 // rings of shared-memory stages, wgmma on the tensor cores, an epilogue
-// staged through shared memory.  Both forward kernels run on it:
-// csrc/conv3x3.cu (one conv, channels-last in and out) and
-// csrc/dense_block.cu (the convs of a dense block); so does the bf16
+// staged through shared memory.  The forward kernels run on it:
+// csrc/conv3x3.cu (one conv, channels-last in and out),
+// csrc/dense_block.cu (the convs of a dense block) and
+// csrc/dense_block_chain.cu (conv n of each dense block of the RRDB
+// trunk, chained through the blocks' buffers); so does the bf16
 // backward's data gradient (csrc/dense_block_bwd.cu), a conv over the
 // channel range of its dz buffer, with the epilogues of kBwd below.  The
 // f32 paths keep the FMA tile of conv3x3_tile.cuh.
@@ -82,6 +84,13 @@
 //   NCHW (16-byte runs of 8 pixels of one channel, x read the same way
 //   for the f32 residual) or NHWC.  Shapes that break 16-byte alignment
 //   (cout 3) store element by element.
+// - The trunk's chained epilogue (kChain) is compiled only into the
+//   source that launches it (WGC_EPILOGUE below); the mode stays a field
+//   read at run time, so every source has the same kernels under the same
+//   names.  Epilogue code that never runs is not free: compiled beside
+//   the others, a chained mode slowed the single conv's 64-wide
+//   instantiations by 8-11 % and the dense block by 2-5 % on an H100
+//   (PERF.md).
 //
 // What holds it back (PERF.md has the numbers): shared-memory bandwidth
 // (per wgmma the A rows and N x 32 bytes of B), which a 32-wide growth
@@ -140,6 +149,28 @@ constexpr int kResidualNHWC = 2;     // the same, NHWC
 // the backward's data gradient (kBwd kernels; no bias, acc staged in f32)
 constexpr int kBwdAct = 3;   // dout = acc * leak(act): dz (bf16), db slots
 constexpr int kBwdDx = 4;    // dx = round(g + acc), NCHW
+// conv n of a dense block on the RRDB trunk's chain: y = x + res_scale *
+// conv with x read from the block's own feature buffer and y written
+// into the next block's, both channels-last at pixel stride c_out.  Where
+// the block ends an RRDB, act (LeakyReLU's flag in kStore) says where x_o
+// lies, and out = x_o + round(res_scale * y), the RRDB's residual:
+constexpr int kChain = 5;
+constexpr int kOuterAtOut = 1;       // act: x_o is what out holds
+constexpr int kOuterIsX = 2;         // act: x_o is x (an RRDB of one block)
+
+// The modes a source compiles (it may define WGC_EPILOGUE before
+// including this header); the backward's kernels have their own epilogue.
+#define WGC_EPILOGUE_BLOCK 0   // kStore and the residuals (the default)
+#define WGC_EPILOGUE_CHAIN 1   // kStore and kChain: dense_block_chain.cu
+#ifndef WGC_EPILOGUE
+#define WGC_EPILOGUE WGC_EPILOGUE_BLOCK
+#endif
+__host__ __device__ constexpr bool compiled(int mode) {
+  return mode == kStore || mode == kBwdAct || mode == kBwdDx ||
+         (WGC_EPILOGUE == WGC_EPILOGUE_BLOCK &&
+          (mode == kResidualNCHW || mode == kResidualNHWC)) ||
+         (WGC_EPILOGUE == WGC_EPILOGUE_CHAIN && mode == kChain);
+}
 
 // Everything a launch needs on the device besides the two tensor maps.
 struct Params {
@@ -461,6 +492,14 @@ __device__ __forceinline__ T residual(const Params& p, T x, T conv) {
       __fadd_rn(to_f32(x), __fmul_rn(p.res_scale, to_f32(conv))));
 }
 
+// the RRDB's outer residual x_o + round(res_scale * y), rounded as
+// PyTorch's multiply and add in T round it
+template <typename T>
+__device__ __forceinline__ T outer(const Params& p, T xo, T y) {
+  return from_f32<T>(__fadd_rn(
+      to_f32(xo), to_f32(from_f32<T>(__fmul_rn(p.res_scale, to_f32(y))))));
+}
+
 // Bytes of one warp's staging rows: 16 pixels x N channels, + 16 bytes
 __host__ __device__ constexpr uint32_t warp_stage_bytes(int n, int elt) {
   return 16 * (n * elt + 16);
@@ -496,7 +535,7 @@ __device__ __forceinline__ void epilogue(const Params& p,
     const size_t row_pix = ((size_t)b * p.h + oy) * p.w;
     Tout* out = static_cast<Tout*>(p.out);
     const Tout* res = static_cast<const Tout*>(p.res);
-    if (p.mode == kResidualNCHW) {
+    if (compiled(kResidualNCHW) && p.mode == kResidualNCHW) {
       // y[b][n][oy][ox]: runs of 8 pixels of one channel
       const size_t plane = (size_t)p.h * p.w;
       for (int it = lane; it < 2 * nvalid; it += 32) {
@@ -527,12 +566,28 @@ __device__ __forceinline__ void epilogue(const Params& p,
         *reinterpret_cast<uint4*>(v) =
             *reinterpret_cast<const uint4*>(st + px * kRow + q);
         const size_t pix = row_pix + ox0 + px;
-        if (p.mode == kResidualNHWC) {
+        if (compiled(kResidualNHWC) && p.mode == kResidualNHWC) {
           alignas(16) Tout xv[kVec];
           *reinterpret_cast<uint4*>(xv) =
               *reinterpret_cast<const uint4*>(res + pix * p.cout + n0 + q);
 #pragma unroll
           for (int j = 0; j < kVec; ++j) v[j] = residual(p, xv[j], v[j]);
+        }
+        if (compiled(kChain) && p.mode == kChain) {
+          // x_o in out is read before this lane writes the same piece
+          const size_t i = pix * p.c_out + n0 + q;
+          alignas(16) Tout xv[kVec], ov[kVec];
+          *reinterpret_cast<uint4*>(xv) =
+              *reinterpret_cast<const uint4*>(res + i);
+          if (p.act == kOuterAtOut)
+            *reinterpret_cast<uint4*>(ov) =
+                *reinterpret_cast<const uint4*>(out + i);
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) {
+            v[j] = residual(p, xv[j], v[j]);
+            if (p.act)
+              v[j] = outer(p, p.act == kOuterIsX ? xv[j] : ov[j], v[j]);
+          }
         }
         *reinterpret_cast<uint4*>(out + pix * p.c_out + n0 + q) =
             *reinterpret_cast<const uint4*>(v);
@@ -543,8 +598,13 @@ __device__ __forceinline__ void epilogue(const Params& p,
         if (ox0 + px >= p.w) continue;
         const size_t pix = row_pix + ox0 + px;
         Tout v = st[px * kRow + c];
-        if (p.mode == kResidualNHWC)
+        if (compiled(kResidualNHWC) && p.mode == kResidualNHWC)
           v = residual(p, res[pix * p.cout + n0 + c], v);
+        if (compiled(kChain) && p.mode == kChain) {
+          const size_t i = pix * p.c_out + n0 + c;
+          v = residual(p, res[i], v);
+          if (p.act) v = outer(p, p.act == kOuterIsX ? res[i] : out[i], v);
+        }
         out[pix * p.c_out + n0 + c] = v;
       }
     }
@@ -1038,7 +1098,7 @@ template <typename Tout, int kMaxN, bool kBwd = false>
 int launch(const Conv& c, cudaStream_t stream) {
   if (c.cin < 8 || c.cin % 8 || c.c_total % 8 || c.cin > c.c_total ||
       c.cout < 1 || c.batch < 1 || c.h < 1 || c.w_img < 1 ||
-      (uintptr_t)c.in % 16 || (uintptr_t)c.w % 16)
+      (uintptr_t)c.in % 16 || (uintptr_t)c.w % 16 || !compiled(c.mode))
     return (int)cudaErrorInvalidValue;
   switch (pick_n(c.cout, kMaxN)) {
     case 8: return launch_n<8, Tout, kBwd>(c, stream);

@@ -17,15 +17,19 @@
 // residual, and y is rounded to x's dtype.
 //
 // Layout.  The wrapper (ops/dense_block.py) allocates one channels-last
-// feature buffer (B, H, W, C + (n-1)G) and copies the input x into
-// channels [0, C) (from NCHW a transpose, from NHWC a strided copy).
+// feature buffer (B, H, W, C + (n-1)G) per call and copies the input x
+// into channels [0, C) (from NCHW a transpose, from NHWC a strided copy).
 // Launch k reads the channel prefix [0, C + (k-1)G) and its epilogue
 // writes the next channel slice, so the concat costs nothing; the last
 // launch writes y in x's layout (NCHW, or NHWC with the nhwc flag) and
-// reads x for the residual.  In bf16 every slice starts on a 16-byte
-// boundary: the wrapper pads C and G to multiples of 8 inside the buffer
-// (zero input channels, zero weights and biases on the padded outputs,
-// which LeakyReLU leaves 0); the public shapes stay unpadded.  Channels-last puts the channels of one pixel side by side,
+// reads x for the residual.  (A bf16 model's RRDB trunk launches its
+// convs 1..n-1 here too, but on three buffers shared along the trunk and
+// with conv n from dense_block_chain.cu: one copy of its input in all.)
+// In bf16 every slice
+// starts on a 16-byte boundary: the wrapper pads C and G to multiples of
+// 8 inside the buffer (zero input channels, zero weights and biases on
+// the padded outputs, which LeakyReLU leaves 0); the public shapes stay
+// unpadded.  Channels-last puts the channels of one pixel side by side,
 // so a tile's input moves as 16-byte copies.  Weights are packed once
 // per model as (9, cout, cin): tap-major (tap = dy*3 + dx), then output
 // channel, then input channel.
@@ -51,9 +55,11 @@
 // shared memory for the whole launch, so each tile moves only its input
 // patch; conv5's 221 KB of weights fit in no block and come 32 input
 // channels at a time with each stage of the ring, three stages deep.
-// Still one launch per conv, so the growing buffer is re-read per conv
-// (from L2 at this size); one fused launch per block is a later step.
-// PERF.md has the times.
+// One launch per conv, so the growing buffer is re-read per conv (from
+// L2 at this size); programmatic dependent launch overlaps each launch's
+// start with the previous one's end (conv3x3_wgmma.cuh).  A block in one
+// launch is not built: ROADMAP.md lists it among the kernel's
+// candidates, and PERF.md has the times.
 //
 // The f32 path (used when the model runs in float32) is the scalar-FMA
 // tile of conv3x3_tile.cuh, so float32 stays IEEE float32 (no TF32).

@@ -13,7 +13,10 @@ the conv path as the JAX package's does:
 - ``pallas_cf`` (``auto``): NCHW inside, one transpose at each end.
   Every dense block through :func:`ops.dense_block.dense_block` (the
   dense-block kernel); the stem, trunk and tail convs ``F.conv2d``, as
-  the JAX package leaves them to XLA.
+  the JAX package leaves them to XLA.  Prepared (not live) in bf16, the
+  whole RRDB trunk runs as one :func:`ops.dense_block.dense_block_chain`,
+  the same values with the blocks' feature buffers chained
+  (:meth:`RRDBNet.trunk`).
 - ``pallas_cf_tail``: ``pallas_cf``, with ``conv_body``, the upsample
   convs and ``conv_hr`` through :func:`ops.conv3x3.conv3x3_cf` (the
   single-conv kernel), LeakyReLU fused where the JAX package fuses it.
@@ -80,6 +83,7 @@ from super_resolution_tpu_torch.ops.conv3x3 import (
 )
 from super_resolution_tpu_torch.ops.dense_block import (
     dense_block,
+    dense_block_chain,
     dense_block_train,
     fused_dense_block,
     pack_weight,
@@ -96,6 +100,8 @@ from super_resolution_tpu_torch.ops.shuffle import (
 )
 
 NHWC_IMPLS = ("pallas", "pallas_fused")   # the model runs NHWC inside
+CHAIN_IMPLS = ("pallas_cf", "pallas_cf_tail")   # blocks by dense_block
+_DENSE_BLOCK = dense_block   # a check may put another in dense_block's place
 
 
 def _on_nhwc(fn, x: torch.Tensor) -> torch.Tensor:
@@ -262,10 +268,13 @@ class RRDB(nn.Module):
         for k in range(1, cfg.n_dense + 1):
             setattr(self, f"rdb{k}", DenseBlock(cfg))
 
+    def dense_blocks(self):
+        return [getattr(self, f"rdb{k}") for k in range(1, self.n_dense + 1)]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = x
-        for k in range(1, self.n_dense + 1):
-            out = getattr(self, f"rdb{k}")(out)
+        for rdb in self.dense_blocks():
+            out = rdb(out)
         return x + self.res_scale * out
 
 
@@ -341,11 +350,29 @@ class RRDBNet(nn.Module):
                                      else x.contiguous())
         return out.float().permute(0, 2, 3, 1)
 
+    def trunk(self, fea: torch.Tensor) -> torch.Tensor:
+        """The RRDB trunk on ``fea`` (NCHW; NHWC under ``pallas`` and
+        ``pallas_fused``): ``self.body``, block by block, or where the
+        model can see that its dense blocks run prepared in bf16 through
+        :func:`ops.dense_block.dense_block` (``pallas_cf``,
+        ``pallas_cf_tail``; not live, and no other function put in its
+        place in this module), the same values by
+        :func:`ops.dense_block.dense_block_chain`."""
+        if (self.impl in CHAIN_IMPLS and self._dtype == torch.bfloat16
+                and dense_block is _DENSE_BLOCK):
+            blocks = [[(d._w, d._b) for d in r.dense_blocks()]
+                      for r in self.body]
+            if all(w is not None for r in blocks for w, _ in r):
+                return dense_block_chain(fea, blocks,
+                                         res_scale=self.cfg.res_scale,
+                                         slope=self.cfg.lrelu_slope)
+        return self.body(fea)
+
     def _forward_nchw(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         slope = cfg.lrelu_slope
         fea = self.conv_first(x)
-        trunk = self.body(fea)
+        trunk = self.trunk(fea)
         if self.impl == "pallas_cf_tail":
             # channels-last from here to conv_hr: the kernel's layout
             fea = self.conv_body.cf(trunk, False, slope) + fea

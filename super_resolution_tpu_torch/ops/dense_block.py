@@ -27,6 +27,16 @@ differentiable block — a ``torch.autograd.Function`` over the two,
 named after the JAX ``dense_block_cf_train`` — and returns dW in the
 weights' dtype, as the JAX VJP does.
 
+:func:`dense_block_chain` runs a whole RRDB trunk: for each RRDB, its
+dense blocks one after the other and its outer residual ``x +
+res_scale * out``, value for value as :func:`dense_block` and the
+compute dtype's multiply and add give them.  On the card its blocks
+share three channels-last feature buffers: x is copied into the first
+once, each block's last launch writes its output, with the RRDB's
+residual where the block ends an RRDB, straight into channels [0, C) of
+the buffer the next block reads (:func:`chain_plan`), and one copy takes
+the trunk's output out to NCHW.
+
 :func:`fused_dense_block` is the same forward on an NHWC x, returning
 an NHWC y: the NHWC entry of ``csrc/dense_block.cu``, which replaces
 ``ops/pallas/dense_block.py:fused_dense_block`` (the ``pallas_fused``
@@ -73,7 +83,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -81,7 +91,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from super_resolution_tpu_torch.device import no_tf32
-from super_resolution_tpu_torch.metrics import span
+from super_resolution_tpu_torch.metrics import count, span
 
 N_CONVS = 5                    # convs of the ESRGAN block (any n >= 1 runs)
 TILE = 16                      # the kernels' square pixel tile
@@ -536,6 +546,19 @@ def _lib_bwd() -> ctypes.CDLL:
     return lib
 
 
+def _lib_chain() -> ctypes.CDLL:
+    from super_resolution_tpu_torch.build import load_all
+
+    # the chain launches convs 1..n-1 from the block library: both are
+    # built at once
+    lib = load_all(("dense_block", "dense_block_chain"))[1]
+    if lib.dense_block_conv_chain.argtypes is None:
+        vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        _argtypes(lib.dense_block_conv_chain,
+                  [vp, i, vp, vp, i, vp, i, i, i, i, f, vp])
+    return lib
+
+
 def _raise_on(rc: int, what: str) -> None:
     if rc != 0:
         msg = _lib().dense_block_error_string(rc).decode()
@@ -543,14 +566,35 @@ def _raise_on(rc: int, what: str) -> None:
                            f"CUDA error {rc} ({msg})")
 
 
+def _launch_growth(lib, counter, buf: torch.Tensor, lay: Layout,
+                   weights: Sequence[torch.Tensor],
+                   biases: Sequence[torch.Tensor], slope: float, stream,
+                   poison: bool = False) -> None:
+    """Launches 1..n-1 of a block in its channels-last feature buffer,
+    each writing its slice, counted in ``counter.launches``.  ``poison``
+    (a check) fills every channel from each conv's cin upward with NaN
+    before its launch, so a read past cin would show in y."""
+    b, h, w, _ = buf.shape
+    for k in range(lay.n - 1):
+        cin = lay.offset(k + 1)
+        if poison:
+            buf[..., cin:].fill_(float("nan"))
+        rc = lib.dense_block_conv(
+            int(buf.dtype == torch.bfloat16), buf.data_ptr(), lay.c_total,
+            cin, weights[k].data_ptr(), biases[k].data_ptr(),
+            weights[k].shape[1], buf.data_ptr() + cin * buf.element_size(),
+            None, b, h, w, float(slope), 0.0, 0, 0, stream)
+        _raise_on(rc, f"conv{k + 1}")
+        counter.launches += 1
+
+
 def _launch_block(counter, x: torch.Tensor, x_nhwc: torch.Tensor,
                   weights: Sequence[torch.Tensor],
                   biases: Sequence[torch.Tensor], res_scale: float,
                   slope: float, nhwc: bool, poison: bool = False):
     """The n launches of one block on the card, each counted in
-    ``counter.launches``: (y in x's layout, feature buffer).  ``poison``
-    (a check) fills every channel from each conv's cin upward with NaN
-    before its launch, so a read past cin would show in y."""
+    ``counter.launches``: (y in x's layout, feature buffer).  ``poison``:
+    see :func:`_launch_growth`."""
     lib = _lib()
     b, h, w, c = x_nhwc.shape
     n = len(weights)
@@ -566,22 +610,15 @@ def _launch_block(counter, x: torch.Tensor, x_nhwc: torch.Tensor,
             buf[..., c:lay.cp].zero_()
         y = torch.empty_like(x)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        for k in range(n):
-            cin = lay.offset(k + 1)
-            if poison:
-                buf[..., cin:].fill_(float("nan"))
-            last = k == n - 1
-            cout = weights[k].shape[1]
-            out = y.data_ptr() if last else \
-                buf.data_ptr() + cin * buf.element_size()
-            rc = lib.dense_block_conv(
-                int(x.dtype == torch.bfloat16), buf.data_ptr(),
-                lay.c_total, cin, weights[k].data_ptr(),
-                biases[k].data_ptr(), cout, out, x.data_ptr(), b, h, w,
-                float(slope), float(res_scale), int(last), int(nhwc),
-                stream)
-            _raise_on(rc, f"conv{k + 1}")
-            counter.launches += 1
+        _launch_growth(lib, counter, buf, lay, weights, biases, slope,
+                       stream, poison)
+        rc = lib.dense_block_conv(
+            int(x.dtype == torch.bfloat16), buf.data_ptr(), lay.c_total,
+            lay.c_total, weights[-1].data_ptr(), biases[-1].data_ptr(), c,
+            y.data_ptr(), x.data_ptr(), b, h, w, float(slope),
+            float(res_scale), 1, int(nhwc), stream)
+        _raise_on(rc, f"conv{n}")
+        counter.launches += 1
     return y, buf
 
 
@@ -606,6 +643,146 @@ def dense_block(x: torch.Tensor, weights: Sequence[torch.Tensor],
 
 
 dense_block.launches = 0
+
+
+Block = Tuple[Sequence[torch.Tensor], Sequence[torch.Tensor]]
+CHAIN_BUFFERS = 3
+# where conv n finds x_o for the RRDB's residual (csrc/conv3x3_wgmma.cuh)
+OUTER_AT_OUT, OUTER_IS_X = 1, 2
+
+
+def chain_plan(n_rrdb: int, n_dense: int
+               ) -> List[Tuple[int, int, Optional[int]]]:
+    """The buffers of an RRDB trunk on the chain, per dense block in
+    order: ``(src, dst, outer)`` among :data:`CHAIN_BUFFERS`.  The block
+    reads buffer ``src``, and its last launch writes channels [0, C) of
+    ``dst``, adding, where the block ends an RRDB, the residual of
+    ``outer``, the RRDB's first buffer.  dst is never src (other tiles of
+    the launch still read src) and never the RRDB's first buffer before
+    its last block (x_o waits there); the last block writes over x_o where
+    that is not its src (each value of x_o is read by the lane that then
+    writes it).  The trunk's output is in the last block's dst."""
+    plan, cur = [], 0
+    for _ in range(n_rrdb):
+        first = cur
+        for j in range(n_dense):
+            end = j == n_dense - 1
+            dst = first if end and cur != first else \
+                min(set(range(CHAIN_BUFFERS)) - {cur, first})
+            plan.append((cur, dst, first if end else None))
+            cur = dst
+    return plan
+
+
+def _check_chain(x: torch.Tensor, rrdbs: Sequence[Sequence[Block]]
+                 ) -> List[Block]:
+    """The trunk's blocks in order, each checked against x, all of one
+    geometry, the same count in every RRDB."""
+    n_dense = len(rrdbs[0])
+    if n_dense < 1 or any(len(r) != n_dense for r in rrdbs):
+        raise ValueError(f"every RRDB needs the same number (at least "
+                         f"one) of dense blocks, got "
+                         f"{[len(r) for r in rrdbs]}")
+    blocks = [blk for r in rrdbs for blk in r]
+    shapes = [tuple(wk.shape) for wk in blocks[0][0]]
+    for weights, biases in blocks:
+        _check(x, weights, biases)
+        if [tuple(wk.shape) for wk in weights] != shapes:
+            raise ValueError("every dense block of the trunk must have the "
+                             "first one's conv count and widths")
+    return blocks
+
+
+def _chain_plain(x: torch.Tensor, blocks: Sequence[Block], n_dense: int,
+                 res_scale: float, slope: float) -> torch.Tensor:
+    """The chain on the CPU: :func:`chain_plan`'s buffers (channels-last,
+    x's C channels), :func:`dense_block_plain` per block and the RRDB's
+    residual in x's dtype."""
+    b, c, h, w = x.shape
+    bufs = x.new_empty((CHAIN_BUFFERS, b, h, w, c))
+    nchw = [t.permute(0, 3, 1, 2) for t in bufs]
+    bufs[0].copy_(x.permute(0, 2, 3, 1))
+    count("dense_block.input_copies")
+    count("dense_block.chained", len(blocks) - 1)
+    for (weights, biases), (src, dst, outer) in zip(
+            blocks, chain_plan(len(blocks) // n_dense, n_dense)):
+        y = dense_block_plain(nchw[src].contiguous(), weights, biases,
+                              res_scale=res_scale, slope=slope)
+        if outer is not None:
+            y = nchw[outer] + res_scale * y
+        nchw[dst].copy_(y)
+    return y.contiguous()
+
+
+def _chain_cuda(x: torch.Tensor, blocks: Sequence[Block], n_dense: int,
+                res_scale: float, slope: float) -> torch.Tensor:
+    """The chain on the card: one copy of x into the first buffer, per
+    block its n launches (counted in ``dense_block.launches``: convs
+    1..n-1 from ``csrc/dense_block.cu``, conv n from
+    ``csrc/dense_block_chain.cu``) inside its own ``ops.dense_block``
+    device span, and in the last one the copy of the output to NCHW."""
+    chain, lib = _lib_chain(), _lib()
+    b, c, h, w = x.shape
+    lay = layout(c, _growth(blocks[0][0]), len(blocks[0][0]), x.dtype)
+    plan = chain_plan(len(blocks) // n_dense, n_dense)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        bufs = torch.empty((CHAIN_BUFFERS, b, h, w, lay.c_total),
+                           dtype=x.dtype, device=x.device)
+        for i, ((weights, biases), (src, dst, outer)) in enumerate(
+                zip(blocks, plan)):
+            with span("ops.dense_block", x.device):
+                if i == 0:
+                    if lay.cp > c:
+                        bufs[..., c:lay.cp].zero_()
+                    bufs[0, ..., :c].copy_(x.permute(0, 2, 3, 1))
+                    count("dense_block.input_copies")
+                else:
+                    count("dense_block.chained")
+                if lay.padded:
+                    weights, biases = _padded_params(weights, biases, lay)
+                _launch_growth(lib, dense_block, bufs[src], lay, weights,
+                               biases, slope, stream)
+                rc = chain.dense_block_conv_chain(
+                    bufs[src].data_ptr(), lay.c_total,
+                    weights[-1].data_ptr(), biases[-1].data_ptr(), c,
+                    bufs[dst].data_ptr(),
+                    0 if outer is None else
+                    OUTER_AT_OUT if outer == dst else OUTER_IS_X,
+                    b, h, w, float(res_scale), stream)
+                _raise_on(rc, f"conv{lay.n} (chained)")
+                dense_block.launches += 1
+                if i == len(blocks) - 1:
+                    out = bufs[dst, ..., :c].permute(0, 3, 1, 2) \
+                        .contiguous()
+    return out
+
+
+def dense_block_chain(x: torch.Tensor, rrdbs: Sequence[Sequence[Block]], *,
+                      res_scale: float, slope: float) -> torch.Tensor:
+    """An RRDB trunk on NCHW ``x``: ``rrdbs`` holds, per RRDB, its dense
+    blocks' ``(weights, biases)`` (packed, as :func:`dense_block` takes
+    them); each RRDB gives ``x + res_scale * block_n(...block_1(x))``,
+    the blocks' residuals and the RRDB's in x's dtype, equal value for
+    value to :func:`dense_block` and the dtype's multiply and add.  CUDA
+    tensors (bfloat16) launch the kernels on the chain's buffers
+    (:func:`chain_plan`): 345 launches for 23 RRDBs of three five-conv
+    blocks, one copy of x in (counter ``dense_block.input_copies``) and
+    one of the output out, every other block's input written by an
+    epilogue (counter ``dense_block.chained``).  CPU tensors take the
+    plain version with the same buffers and counters."""
+    if not rrdbs:
+        return x
+    blocks = _check_chain(x, rrdbs)
+    if x.device.type == "cpu":
+        return _chain_plain(x, blocks, len(rrdbs[0]), res_scale, slope)
+    if x.device.type != "cuda":
+        raise ValueError(f"dense_block_chain runs on cuda or cpu, not "
+                         f"{x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the chain's kernel runs bfloat16, got {x.dtype}: "
+                        f"run the blocks one by one (dense_block)")
+    return _chain_cuda(x, blocks, len(rrdbs[0]), res_scale, slope)
 
 
 def fused_dense_block_plain(x: torch.Tensor, weights: Sequence[torch.Tensor],

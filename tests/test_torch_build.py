@@ -59,12 +59,32 @@ def _source(name):
         return f.read()
 
 
-@pytest.mark.parametrize("name", ["conv3x3.cu", "dense_block.cu"])
+@pytest.mark.parametrize("name", ["conv3x3.cu", "dense_block.cu",
+                                  "dense_block_chain.cu"])
 def test_bf16_forward_runs_on_the_wgmma_tile(name):
     src = _source(name)
     assert '#include "conv3x3_wgmma.cuh"' in src
     assert "conv_tile_bf16" not in src
     assert "wgc::launch<__nv_bfloat16" in src
+
+
+@pytest.mark.parametrize("name,epilogues", [
+    ("dense_block_chain.cu", "WGC_EPILOGUE_CHAIN"),
+    ("conv3x3.cu", None), ("dense_block.cu", None),
+    ("dense_block_bwd.cu", None)])
+def test_each_source_compiles_the_epilogues_it_launches(name, epilogues):
+    """Only the trunk's chain compiles the chained epilogue (beside the
+    store); the other sources keep the default set, the code they had
+    before it (the backward has its own epilogue)."""
+    src = _source(name)
+    define = f"#define WGC_EPILOGUE {epilogues}"
+    if epilogues is None:
+        assert "#define WGC_EPILOGUE" not in src
+    else:
+        assert define in src
+        assert src.index(define) < src.index('#include "conv3x3_wgmma.cuh"')
+    hopper = _source("conv3x3_wgmma.cuh")
+    assert "!compiled(c.mode)" in hopper      # launch refuses the others
 
 
 def test_mma_sync_tile_serves_only_the_backward():

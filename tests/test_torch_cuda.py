@@ -2,8 +2,9 @@
 forward (NCHW and NHWC entries) and backward, the single-conv kernel,
 the experiment variants v3–v6 routed to the dense-block kernel and the
 int8 kernel of v8, against their plain versions, their launch counts and
-input checks, and the generator under every conv impl (lax included)
-with either tail, a training step, the CLI, ``eval_batch`` and the
+input checks, the generator under every conv impl (lax included)
+with either tail, the RRDB trunk on the chain bit for bit against the
+same trunk block by block, a training step, the CLI, ``eval_batch`` and the
 headline bench on CUDA.  Marked
 ``cuda``; each skips where torch sees no CUDA device.  On a machine
 with a card (no JAX needed there):
@@ -836,3 +837,95 @@ def test_bench_runs_through_the_kernel(cuda, capsys):
     assert math.isfinite(line["value"]) and line["value"] > 0
     assert res["launches"] == {"dense_block": res["forwards"] * 2 * 3
                                * LAUNCHES_PER_BLOCK}
+
+
+# The RRDB trunk on the chain: three feature buffers, each block's last
+# launch writing the next block's input (and the RRDB's residual), held
+# bit for bit to the same trunk block by block.
+
+def _chain_trunks(cuda, shape, seed=0, **kw):
+    """(chained trunk, per-block trunk, the chain's counters) of a bf16
+    RRDBNet (torch_default weights: values of order 1) on a seeded
+    feature map."""
+    from super_resolution_tpu_torch.metrics import recording, span_report
+
+    cfg = GeneratorConfig(init="torch_default", **kw)
+    model = rrdb.RRDBNet(cfg, torch.Generator().manual_seed(seed)).to(cuda)
+    model.prepare(torch.bfloat16)
+    fea = torch.randn(shape, generator=torch.Generator().manual_seed(
+        seed + 1)).to(cuda, torch.bfloat16)
+    with torch.inference_mode():
+        ref = model.body(fea)
+        with recording():
+            got = model.trunk(fea)
+            torch.cuda.synchronize()
+            counters = span_report()["counters"]
+    return got, ref, counters
+
+
+@pytest.mark.parametrize("n_blocks,shape", [
+    (23, (2, 64, 384, 384)), (23, (2, 64, 300, 384)),
+    (6, (1, 64, 256, 256))], ids=["cli_tile", "cli_tile_short", "anime6b"])
+def test_chained_trunk_is_the_per_block_trunk_bit_for_bit(cuda, n_blocks,
+                                                          shape):
+    got, ref, counters = _chain_trunks(cuda, shape, n_blocks=n_blocks)
+    assert torch.isfinite(got.float()).all()
+    assert torch.equal(got, ref)
+    n = n_blocks * 3
+    assert counters["launches.dense_block"] == n * LAUNCHES_PER_BLOCK
+    assert counters["dense_block.chained"] == n - 1
+    assert counters["dense_block.input_copies"] == 1
+
+
+@pytest.mark.parametrize("kw,shape", [
+    # padded widths (C 12 -> 16, G 6 -> 8); W not a multiple of 8: the
+    # element-wise chain and NCHW stores
+    (dict(filters=12, growth=6, n_dense_convs=3), (2, 12, 37, 53)),
+    # one block per RRDB: its output cannot take x_o's place
+    (dict(filters=32, growth=16, n_dense=1), (1, 32, 24, 40)),
+    (dict(filters=32, growth=16, n_dense=2, n_dense_convs=4),
+     (2, 32, 20, 16)),
+    # channels above one group of 64 outputs
+    (dict(filters=96, growth=32), (1, 96, 16, 24))],
+    ids=["padded_odd_w", "one_block", "two_blocks", "wide"])
+def test_chained_trunk_geometries(cuda, kw, shape):
+    got, ref, counters = _chain_trunks(cuda, shape, n_blocks=3, **kw)
+    assert torch.equal(got, ref)
+    n = 3 * kw.get("n_dense", 3)
+    assert counters["dense_block.chained"] == n - 1
+    assert counters["launches.dense_block"] == \
+        n * kw.get("n_dense_convs", 5)
+
+
+def test_generator_forward_through_the_chain(cuda, monkeypatch):
+    """The whole bf16 forward: the chain (auto and pallas_cf_tail) gives
+    the per-block path's output bit for bit; float32 keeps the per-block
+    path."""
+    x = torch.randn(2, 24, 40, 3, generator=torch.Generator()
+                    .manual_seed(5)).to(cuda)
+    for impl in ("auto", "pallas_cf_tail"):
+        cfg = GeneratorConfig(n_blocks=2, filters=32, growth=16,
+                              conv_impl=impl, init="torch_default")
+        model = rrdb.RRDBNet(cfg, torch.Generator().manual_seed(1)).to(cuda)
+        model.prepare(torch.bfloat16)
+        with torch.inference_mode():
+            got = model(x)
+            # another function in dense_block's place: block by block
+            monkeypatch.setattr(rrdb, "dense_block",
+                                lambda *a, **k: dense_block(*a, **k))
+            ref = model(x)
+            monkeypatch.undo()
+        assert torch.equal(got, ref), impl
+    model.prepare(torch.float32)
+    with torch.inference_mode():
+        before = dense_block.launches
+        model(x)
+    assert dense_block.launches - before == 2 * 3 * LAUNCHES_PER_BLOCK
+
+
+def test_chain_rejects_float32_on_the_card(cuda):
+    from super_resolution_tpu_torch.ops.dense_block import dense_block_chain
+
+    x, ws, bs = _block((1, 16, 16, 16), 8, torch.float32, cuda)[:3]
+    with pytest.raises(TypeError, match="bfloat16"):
+        dense_block_chain(x, [[(ws, bs)]], res_scale=0.2, slope=0.2)
