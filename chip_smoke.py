@@ -39,6 +39,13 @@ and prints no result line:
    batches (2, 64, 384, 384) and (2, 64, 300, 384) with 23 RRDB and at
    (1, 64, 256, 256) with 6; 345 launches, 68 chained blocks and one
    input copy at 23 RRDB; ms of both in turns.
+   swinir (after chain): the window-attention kernel against its plain
+   version at 240 wide, 8 heads, shift 0 and 4, on 64², 72 x 104 and
+   1024² maps, the other shift told apart; at 1024² its ms in turns with
+   the plain version and the library's (roll, partition, one
+   ``scaled_dot_product_attention`` with the bias and mask as its mask),
+   the bound; SwinIR-L's forward at 512² and 1024², one launch per Swin
+   layer.
 3. model: the full-width 23-block RRDBNet in bf16 on 8×128² LR tiles
    (seeded random weights) through ``train.steps.make_infer_fn``: the
    launch count of one forward, agreement with the same forward through
@@ -80,8 +87,9 @@ and prints no result line:
 6. kernel-conv3x3: the single-conv kernel against its plain version at
    the flagship tail's shapes (8 x 64 x 128^2, 256^2, 512^2 -> 64), at
    conv_first (8, 128, 128, 3) -> 64 and conv_last (8, 512, 512, 64) ->
-   3, at the pixel-shuffle upconv (-> 256) and at an odd fp32 shape;
-   max |err|, ms in turns (library: one cuDNN conv in bf16), the bound
+   3, at the pixel-shuffle upconv (-> 256), at an odd fp32 shape and at
+   SwinIR-L's convs on a 1024^2 LR frame (3 -> 240, 240 -> 64, 64 -> 240,
+   240 -> 64 with LeakyReLU 0.01); max |err|, ms in turns (library: one cuDNN conv in bf16), the bound
    and the roofline share, and at 128^2 the cost of conv3x3_cf's one
    conversion of a contiguous NCHW input.
 7. kernel-fused: the NHWC dense-block entry against its plain version at
@@ -220,7 +228,8 @@ Then the last slice's tools, each a subprocess (after build-cache):
    --conv_impl pallas_cf``: completes, every printed number finite, 552
    backward launches per training step; the PSNR model against bicubic
    and the GAN's sharpening recorded, not gated.
-29. the ``kernels`` JSON line (the tools' launches in
+29. the ``kernels`` JSON line (the window attention's last: its
+   launches are SwinIR-L's forwards of the swinir phase; the tools' launches in
    ``launches_tools_path``, the bench's and eval_batch's in
    ``launches_bench_path`` and ``launches_eval_batch_path``), the card's
    name and power limit as nvidia-smi prints them, then the ``ok`` JSON
@@ -684,6 +693,131 @@ def chain_phase():
             fail(f"{name}: counters {got_counts}, want {want}, or the "
                  f"trunk is not finite")
     return results
+
+
+# the window-attention kernel against its float32 plain version: the
+# output rounded to bf16 once and P once for P.v, about two bf16 ULPs of
+# values of order 1 (as the dense block's bf16 tolerance)
+SWINIR_ATTN_TOL = 2.0 ** -6
+
+
+def window_attention_sdpa(qkv, heads, shift, bias_mask):
+    """The library's way to one Swin layer's window attention: roll,
+    partition, one ``scaled_dot_product_attention`` call with the
+    gathered relative bias plus the shift mask as its additive mask
+    (``bias_mask``: (B·nW, heads, 64, 64), built once as a model would
+    at load time), reverse and roll back; bf16."""
+    import torch
+    import torch.nn.functional as F
+
+    b, hp, wp, c3 = qkv.shape
+    c, w = c3 // 3, 8
+    hd, nwy, nwx = c // heads, hp // w, wp // w
+    x = torch.roll(qkv, (-shift, -shift), (1, 2)) if shift else qkv
+    x = x.view(b, nwy, w, nwx, w, 3, heads, hd)
+    x = x.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, b * nwy * nwx, heads,
+                                                  w * w, hd)
+    o = F.scaled_dot_product_attention(x[0], x[1], x[2],
+                                       attn_mask=bias_mask)
+    o = o.view(b, nwy, nwx, heads, w, w, hd)
+    o = o.permute(0, 1, 4, 2, 5, 3, 6).reshape(b, hp, wp, c)
+    return torch.roll(o, (shift, shift), (1, 2)) if shift else o
+
+
+def swinir_phase():
+    """SwinIR's window attention (``csrc/window_attention.cu``) against
+    its plain version at SwinIR-L's widths (240, 8 heads of 30), shift 0
+    and 4, maps of 64 x 64, 72 x 104 and 1024 x 1024 (the size of the
+    SD cell's whole frames), and with the shift the other way (which
+    must fail); at 1024^2 its ms in turns with the plain version and
+    with the library's (one ``scaled_dot_product_attention`` on the
+    partitioned windows), against its roofline (the q, k, v read and the
+    output written at 3.35 TB/s); and SwinIR-L's whole bf16 forward at
+    512^2 and 1024^2 through ``make_infer_fn``, one kernel launch per
+    Swin layer, launches counted from 0 around those forwards."""
+    import torch
+
+    from super_resolution_tpu_torch.config import preset
+    from super_resolution_tpu_torch.models.swinir import SwinIR
+    from super_resolution_tpu_torch.ops import window_attention as wa
+    from super_resolution_tpu_torch.train.steps import make_infer_fn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    checks, ms, lib_err = {}, {}, {}
+    for hp, wp in ((64, 64), (72, 104), (1024, 1024)):
+        b = 1 if hp == 1024 else 2
+        qkv = torch.randn(b, hp, wp, 720, generator=gen,
+                          device=dev).to(torch.bfloat16)
+        table = torch.randn(8, 225, generator=gen, device=dev)
+        qf = qkv.float()
+        for shift in (0, 4):
+            got = wa.window_attention(qkv, table, 8, shift).float()
+            ref = wa.window_attention_plain(qf, table, 8, shift)
+            other = wa.window_attention_plain(qf, table, 8, 4 - shift)
+            err = (got - ref).abs().max().item()
+            name = f"{hp}x{wp}_s{shift}"
+            checks[name] = dict(
+                max_abs_err=err, tol=SWINIR_ATTN_TOL * (1 + ref.abs().max()
+                                                        .item()),
+                other_shift_err=(got - other).abs().max().item())
+            del ref, other
+            if err > checks[name]["tol"]:
+                fail(f"window attention {name}: max |d| {err} against the "
+                     f"plain version")
+            if checks[name]["other_shift_err"] < 20 * err:
+                fail(f"window attention {name}: the other shift is not "
+                     f"told apart")
+            if hp != 1024:
+                continue
+            bias = wa.relative_bias(table)[None]
+            if shift:
+                bias = bias + wa.shift_mask(hp, wp, shift, dev)[:, None]
+            bias = bias.expand(hp * wp // 64, -1, -1, -1).repeat(
+                b, 1, 1, 1).to(torch.bfloat16)
+            lib = window_attention_sdpa(qkv, 8, shift, bias).float()
+            lib_err[str(shift)] = (lib - got).abs().max().item()
+            del lib, got
+            ms[shift] = turns({
+                "kernel": lambda: wa.window_attention(qkv, table, 8, shift),
+                "plain": lambda: wa.window_attention_plain(qkv, table, 8,
+                                                           shift),
+                "library": lambda: window_attention_sdpa(qkv, 8, shift,
+                                                         bias)}, 3)
+            del bias
+        del qkv, qf
+    torch.cuda.empty_cache()
+    bound_ms = 1024 * 1024 * 4 * 240 * 2 / PEAK_BYTES * 1e3
+    cfg = preset("swinir_l_real_x4")
+    model = SwinIR(cfg.generator, torch.Generator().manual_seed(19))
+    infer = make_infer_fn(cfg, model.state_dict(), dev)
+    frames, launches = {}, wa.window_attention.launches
+    for n in (512, 1024):
+        x = torch.rand(1, n, n, 3, device=dev) - 0.45
+        infer(x)
+        before = wa.window_attention.launches
+        frames[n] = time_ms(lambda: infer(x), 2)
+        if wa.window_attention.launches - before != 2 * 54:
+            fail("SwinIR-L: not one attention launch per Swin layer")
+    launches = wa.window_attention.launches - launches
+
+    def mean(key):
+        return (ms[0][key] + ms[4][key]) / 2
+
+    out = dict(checks=checks,
+               kernel_ms_1024={str(k): v["kernel"] for k, v in ms.items()},
+               plain_ms_1024={str(k): v["plain"] for k, v in ms.items()},
+               library_ms_1024={str(k): v["library"] for k, v in ms.items()},
+               library_vs_kernel_max_abs=lib_err,
+               bound_ms_1024=bound_ms, roofline=bound_ms / mean("kernel"),
+               forward_ms={str(k): v for k, v in frames.items()},
+               launches_forward=launches,
+               max_abs_err=max(checks[f"1024x1024_s{s}"]["max_abs_err"]
+                               for s in (0, 4)),
+               ms=mean("kernel"), plain_ms=mean("plain"),
+               library_ms=mean("library"))
+    print("[swinir] " + json.dumps(out), flush=True)
+    return out
 
 
 def bwd_bound(shape, growth, dtype_name, n=5):
@@ -2023,7 +2157,10 @@ def turns(fns, iters):
 def conv3x3_phase():
     """The single-conv kernel against its plain version at the shapes
     of the tail (conv_impl pallas_cf_tail) and of conv_first / conv_last
-    (conv_impl pallas), flagship batch 8 of 128x128 LR tiles."""
+    (conv_impl pallas), flagship batch 8 of 128x128 LR tiles, and at
+    SwinIR-L's on a 1024^2 LR frame: conv_first 3 -> 240, a '3conv'
+    stack's 240 -> 60 (padded to 64) and 64 -> 240, and
+    conv_before_upsample 240 -> 64 with LeakyReLU 0.01."""
     import torch
     import torch.nn.functional as F
 
@@ -2038,17 +2175,22 @@ def conv3x3_phase():
         unpack_weight,
     )
 
-    cases = [  # name, NHWC x, cout, dtype, LeakyReLU
-        ("conv_body_128", (8, 128, 128, 64), 64, "bfloat16", False),
-        ("upconv1_256", (8, 256, 256, 64), 64, "bfloat16", True),
-        ("hr_conv_512", (8, 512, 512, 64), 64, "bfloat16", True),
-        ("conv_first", (8, 128, 128, 3), 64, "bfloat16", False),
-        ("conv_last", (8, 512, 512, 64), 3, "bfloat16", False),
-        ("upconv_ps", (8, 128, 128, 64), 256, "bfloat16", True),
-        ("odd_fp32", (1, 37, 53, 64), 64, "float32", True),
+    cases = [  # name, NHWC x, cout, dtype, LeakyReLU slope or None
+        ("conv_body_128", (8, 128, 128, 64), 64, "bfloat16", None),
+        ("upconv1_256", (8, 256, 256, 64), 64, "bfloat16", 0.2),
+        ("hr_conv_512", (8, 512, 512, 64), 64, "bfloat16", 0.2),
+        ("conv_first", (8, 128, 128, 3), 64, "bfloat16", None),
+        ("conv_last", (8, 512, 512, 64), 3, "bfloat16", None),
+        ("upconv_ps", (8, 128, 128, 64), 256, "bfloat16", 0.2),
+        ("odd_fp32", (1, 37, 53, 64), 64, "float32", 0.2),
+        ("swinir_conv_first", (1, 1024, 1024, 3), 240, "bfloat16", None),
+        ("swinir_3conv_in", (1, 1024, 1024, 240), 64, "bfloat16", 0.2),
+        ("swinir_3conv_out", (1, 1024, 1024, 64), 240, "bfloat16", None),
+        ("swinir_before_up", (1, 1024, 1024, 240), 64, "bfloat16", 0.01),
     ]
     results = {}
-    for name, shape, cout, dtype_name, act in cases:
+    for name, shape, cout, dtype_name, slope in cases:
+        act = slope is not None
         dtype = getattr(torch, dtype_name)
         gen = torch.Generator().manual_seed(300 + len(results))
         cin = shape[-1]
@@ -2058,7 +2200,7 @@ def conv3x3_phase():
         b = (torch.randn(cout, generator=gen) * 0.1).cuda()
         w_oihw, b_lib = unpack_weight(w).contiguous(), b.to(dtype)
         x_cl = x.permute(0, 3, 1, 2)          # NCHW view, channels-last
-        kw = dict(act=act, slope=0.2)
+        kw = dict(act=act, slope=0.2 if slope is None else slope)
 
         fns = {"kernel": lambda: conv3x3(x, w, b, **kw),
                "plain": lambda: conv3x3_plain(x, w, b, **kw),
@@ -2074,7 +2216,9 @@ def conv3x3_phase():
             ok = (y.shape == ref.shape and y.dtype == ref.dtype
                   and bool(torch.isfinite(y.float()).all())
                   and (diff - rtol * ref.float().abs()).max().item() <= atol)
+            max_err = diff.max().item()
             ms = turns(fns, 10 if shape[1] >= 512 else 20)
+            del diff, ref, y
             extra = {}
             if name == "conv_body_128":
                 # conv3x3_cf's one conversion of a contiguous NCHW input
@@ -2087,7 +2231,8 @@ def conv3x3_phase():
                                                        dtype_name)
         results[name] = dict(
             shape=list(shape), cout=cout, dtype=dtype_name, act=act,
-            max_abs_err=diff.max().item(), atol=atol, rtol=rtol, ok=ok,
+            slope=kw["slope"] if act else None,
+            max_abs_err=max_err, atol=atol, rtol=rtol, ok=ok,
             kernel_ms=ms["kernel"], plain_ms=ms["plain"],
             library_ms=ms["library"], bound_ms=bound_ms, bound_by=bound_by,
             flops=flops, bytes=nbytes, roofline_share=bound_ms / ms["kernel"],
@@ -2096,7 +2241,7 @@ def conv3x3_phase():
               flush=True)
         if not ok:
             fail(f"conv3x3 {name}: kernel disagrees with its plain version "
-                 f"(max |err| {diff.max().item()}, tolerance atol {atol} + "
+                 f"(max |err| {max_err}, tolerance atol {atol} + "
                  f"rtol {rtol}·|plain|)")
     return results
 
@@ -4011,6 +4156,7 @@ def main() -> int:
 
     kern = kernel_phase()
     chain_phase()
+    swin = swinir_phase()
     kern_bwd = bwd_kernel_phase()
     model = model_phase()
     t_new = time.perf_counter()
@@ -4217,6 +4363,24 @@ def main() -> int:
         "ms_rows32": int8["flagship_rows32"]["kernel_ms"],
         "kernels_device_ms_rows32":
             int8["flagship_rows32"]["kernels_device_ms"],
+    }, {
+        "name": "window_attention",
+        "route": "cuda",
+        "source": "super_resolution_tpu_torch/csrc/window_attention.cu",
+        # the JAX package computes no attention
+        "replaces": None,
+        # SwinIR-L's forwards through make_infer_fn (the path of cli
+        # upscale --preset swinir_l_real_x4), counted from 0
+        "launches": swin["launches_forward"],
+        # (1, 1024, 1024, 720) bf16 qkv, the mean of shift 0 and 4
+        "max_abs_err": swin["max_abs_err"],
+        "ms": swin["ms"],
+        "plain_ms": swin["plain_ms"],
+        "bound_ms": swin["bound_ms_1024"],
+        "bound_by": "bytes",
+        # roll, partition, one scaled_dot_product_attention with the
+        # bias and mask as its additive mask, reverse, roll back
+        "library_ms": swin["library_ms"],
     }]}))
     print(f"[time] chip_smoke took {time.perf_counter() - t_start:.1f} s "
           f"from the card check to the result", file=sys.stderr, flush=True)

@@ -37,7 +37,8 @@ SOURCES = {"dense_block": "dense_block.cu",
            "dense_block_chain": "dense_block_chain.cu",
            "dense_block_bwd": "dense_block_bwd.cu",
            "conv3x3": "conv3x3.cu",
-           "dense_block_int8": "dense_block_int8.cu"}
+           "dense_block_int8": "dense_block_int8.cu",
+           "window_attention": "window_attention.cu"}
 # headers under csrc/ that the sources include
 HEADERS = ("conv3x3_tile.cuh", "conv3x3_wgmma.cuh")
 

@@ -34,9 +34,14 @@ the CUDA kernels' libraries in D (default: the package's ``_build/``),
 at exit.  ``--loader grain`` feeds training from the grain loader
 (``data/grain_source.py``, each rank its rows); it needs the ``grain``
 package and raises without it, never falling back to ``threads``.
-``--conv_impl`` picks the conv path by the JAX package's names (``auto``
-= ``pallas_cf``, ``pallas_cf_tail``, ``pallas``, ``pallas_fused``, and
-``lax``: cuDNN, no kernel of the port) for ``upscale``, ``serve``,
+``--preset swinir_l_real_x4`` runs SwinIR-L real-world ×4
+(``models/swinir.py``) in ``upscale`` and ``serve``, from a released
+SwinIR ``.pth`` (``003_realSR_BSRGAN_DFOWMFC_s64w8_SwinIR-L_x4_GAN.pth``),
+normalised as SwinIR is (x − the DIV2K mean, unit std); the other
+commands refuse it.  ``--conv_impl`` picks the conv path by the JAX
+package's names (``auto`` = ``pallas_cf``, ``pallas_cf_tail``,
+``pallas``, ``pallas_fused``, and ``lax``: cuDNN, no kernel of the
+port) for ``upscale``, ``serve``,
 ``eval`` and ``train``; a checkpoint sets the architecture, never the
 impl.  Default tile geometry: square 384, no height bucket, no alignment
 under every impl: the port's kernels take every tile shape, so the JAX
@@ -75,13 +80,23 @@ def _build_cfg(args):
         v = getattr(args, name, None)
         return cur if v is None else v
 
-    gen = dataclasses.replace(
-        cfg.generator,
-        n_blocks=ov("residual_blocks", cfg.generator.n_blocks),
-        channels=ov("channels", cfg.generator.channels),
-        upsampler=ov("upsampler", cfg.generator.upsampler),
-        conv_impl=ov("conv_impl", cfg.generator.conv_impl),
-    )
+    if _swinir(cfg):
+        rrdb_only = [f"--{f}" for f in ("residual_blocks", "channels",
+                                        "upsampler", "conv_impl")
+                     if getattr(args, f, None) is not None]
+        if rrdb_only:
+            raise SystemExit(f"--preset {args.preset} is SwinIR: "
+                             f"{', '.join(rrdb_only)} set RRDBNet's "
+                             f"architecture")
+        gen = cfg.generator
+    else:
+        gen = dataclasses.replace(
+            cfg.generator,
+            n_blocks=ov("residual_blocks", cfg.generator.n_blocks),
+            channels=ov("channels", cfg.generator.channels),
+            upsampler=ov("upsampler", cfg.generator.upsampler),
+            conv_impl=ov("conv_impl", cfg.generator.conv_impl),
+        )
     data = dataclasses.replace(
         cfg.data,
         dataset_dir=ov("dataset_dir", cfg.data.dataset_dir),
@@ -147,14 +162,29 @@ def _train_dir(path: str) -> bool:
         f"`python -m super_resolution_tpu.cli export` first")
 
 
+def _swinir(cfg) -> bool:
+    from super_resolution_tpu_torch.config import SwinIRConfig
+
+    return isinstance(cfg.generator, SwinIRConfig)
+
+
 def _load_generator(args, cfg):
-    """(port state dict, cfg with the checkpoint's architecture)."""
+    """(port state dict, cfg with the checkpoint's architecture).  Under
+    a SwinIR preset the checkpoint is a SwinIR ``.pth`` (released names),
+    whose shapes set the SwinIR architecture."""
     from super_resolution_tpu_torch.import_torch import (
         import_generator,
+        import_swinir,
         load_pth,
     )
 
     path = args.checkpoint
+    if _swinir(cfg):
+        if not os.path.isfile(path):
+            raise SystemExit(f"checkpoint not found: {path!r} (expected a "
+                             f"SwinIR .pth file)")
+        sd, gen_cfg = import_swinir(load_pth(path))
+        return sd, dataclasses.replace(cfg, generator=gen_cfg)
     if _train_dir(path):
         from super_resolution_tpu_torch.checkpoint import (
             restore_generator_params,
@@ -476,9 +506,13 @@ def _add_tile_flags(p: argparse.ArgumentParser):
 
 
 def _add_common(p: argparse.ArgumentParser):
-    from super_resolution_tpu_torch.config import PRESETS
+    from super_resolution_tpu_torch.config import MODEL_PRESETS, PRESETS
 
-    p.add_argument("--preset", choices=PRESETS, default=None)
+    p.add_argument("--preset", choices=PRESETS + MODEL_PRESETS,
+                   default=None,
+                   help="a configuration by name; swinir_l_real_x4 "
+                        "(upscale, serve) is SwinIR-L real-world x4, "
+                        "normalised by the DIV2K mean")
     p.add_argument("--residual_blocks", type=int, default=None,
                    help="number of RRDB blocks (default 23)")
     p.add_argument("--channels", type=int, default=None)
@@ -708,6 +742,10 @@ def main(argv=None):
     elif args.compile_cache_dir:
         build.set_build_dir(args.compile_cache_dir)
     cfg = _build_cfg(args)
+    if _swinir(cfg) and args.cmd not in ("upscale", "serve"):
+        raise SystemExit(f"--preset {args.preset} runs upscale and serve "
+                         f"only: the port does not train, score or export "
+                         f"SwinIR")
 
     if args.cmd == "train":
         return _train(args, cfg)

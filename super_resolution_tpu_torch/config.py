@@ -23,10 +23,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import ClassVar, Optional, Tuple, Union
 
 IMAGENET_MEAN: Tuple[float, float, float] = (0.485, 0.456, 0.406)
 IMAGENET_STD: Tuple[float, float, float] = (0.229, 0.224, 0.225)
+# SwinIR's img_range 1 normalisation: x − the DIV2K mean, unit std
+DIV2K_MEAN: Tuple[float, float, float] = (0.4488, 0.4371, 0.4040)
+UNIT_STD: Tuple[float, float, float] = (1.0, 1.0, 1.0)
 
 CONV_IMPLS = ("auto", "lax", "pallas_cf", "pallas_cf_tail", "pallas",
               "pallas_fused")
@@ -73,6 +76,38 @@ class GeneratorConfig:
             s //= 2
             n += 1
         return n
+
+
+@dataclasses.dataclass(frozen=True)
+class SwinIRConfig:
+    """SwinIR hyper-parameters (arXiv 2108.10257; ``define_model`` of
+    ``main_test_swinir.py``, task ``real_sr`` with ``--large_model``):
+    the defaults are SwinIR-L real-world ×4
+    (``003_realSR_BSRGAN_DFOWMFC_s64w8_SwinIR-L_x4_GAN.pth``), 28,013,059
+    parameters.  The widths vary between SwinIR's releases; what the port
+    runs of the rest is fixed: RGB ×4, upsampler 'nearest+conv',
+    resi_connection '3conv', qkv biases, ``patch_norm``, ``img_range`` 1
+    (the ``swinir_l_real_x4`` preset normalises x − the DIV2K mean), and
+    8×8 windows (``ops.window_attention.WINDOW``; every SwinIR SR release).
+    Inference only (no D, VGG or backward for it)."""
+
+    channels: ClassVar[int] = 3
+    scale: ClassVar[int] = 4
+    n_upsample: ClassVar[int] = 2
+    lrelu_slope: ClassVar[float] = 0.2     # the tail's
+
+    embed_dim: int = 240
+    depths: Tuple[int, ...] = (6,) * 9
+    num_heads: Tuple[int, ...] = (8,) * 9
+    mlp_ratio: float = 2.0
+    num_feat: int = 64
+
+    def __post_init__(self):
+        if len(self.depths) != len(self.num_heads):
+            raise ValueError("depths and num_heads differ in length")
+
+
+AnyGeneratorConfig = Union[GeneratorConfig, SwinIRConfig]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,7 +204,7 @@ class TrainConfig:
     compute dtype.  Inference reads the generator, the data
     normalisation, ``compute_dtype``, ``data_parallel`` and ``seed``."""
 
-    generator: GeneratorConfig = GeneratorConfig()
+    generator: AnyGeneratorConfig = GeneratorConfig()
     discriminator: DiscriminatorConfig = DiscriminatorConfig()
     vgg: VGGConfig = VGGConfig()
     loss: LossConfig = LossConfig()
@@ -210,10 +245,13 @@ def ema_maturity_steps(decay: float) -> int:
 
 PRESETS = ("infer_single", "pretrain_psnr", "train_gan", "train_gan_dfm",
            "infer_tiled", "train_gan_dp8")
+# the port's own: other architectures, for ``upscale`` and ``serve``
+MODEL_PRESETS = ("swinir_l_real_x4",)
 
 
 def preset(name: str) -> TrainConfig:
-    """The JAX package's presets by name."""
+    """The JAX package's presets by name (:data:`PRESETS`), and the
+    port's :data:`MODEL_PRESETS`."""
     presets = {
         "infer_single": TrainConfig(compute_dtype="float32"),
         "pretrain_psnr": TrainConfig(
@@ -231,7 +269,13 @@ def preset(name: str) -> TrainConfig:
         ),
         "infer_tiled": TrainConfig(compute_dtype="bfloat16"),
         "train_gan_dp8": TrainConfig(data_parallel=8),
+        # SwinIR-L real-world x4 (upscale and serve only)
+        "swinir_l_real_x4": TrainConfig(
+            generator=SwinIRConfig(),
+            data=DataConfig(normalize_mean=DIV2K_MEAN,
+                            normalize_std=UNIT_STD)),
     }
     if name not in presets:
-        raise KeyError(f"unknown preset {name!r}; have {sorted(PRESETS)}")
+        raise KeyError(f"unknown preset {name!r}; have "
+                       f"{sorted(PRESETS + MODEL_PRESETS)}")
     return presets[name]

@@ -21,6 +21,9 @@ release shape.  :func:`import_discriminator` and
 discriminator naming to and from the port's ``Discriminator``, with its
 BatchNorm statistics.
 
+:func:`import_swinir` reads a released SwinIR checkpoint (its own
+names, less two buffers) and the architecture from its shapes.
+
 :func:`import_vgg` turns a torchvision ``vgg19.features`` state dict
 into the port's VGG trunk's.
 
@@ -44,7 +47,9 @@ import torch
 from super_resolution_tpu_torch.config import (
     DiscriminatorConfig,
     GeneratorConfig,
+    SwinIRConfig,
 )
+from super_resolution_tpu_torch.ops.window_attention import TABLE_ROWS
 
 STYLES = ("basicsr", "xinntao_old", "erik")
 
@@ -184,6 +189,65 @@ def import_generator(
         raise ValueError(f"unmapped checkpoint keys: {sorted(extra)[:8]} "
                          "(pass strict=False to ignore)")
     return out, inferred
+
+
+# SwinIR's buffers: recomputed by the port, never loaded
+SWINIR_BUFFERS = ("relative_position_index", "attn_mask")
+
+
+def is_swinir(keys) -> bool:
+    """Whether a state dict's keys are SwinIR's (``layers.{i}.
+    residual_group.blocks.{j}...``)."""
+    return any(".residual_group.blocks." in k for k in keys)
+
+
+def import_swinir(state_dict: Dict[str, torch.Tensor],
+                  cfg: SwinIRConfig | None = None,
+                  ) -> Tuple[Dict[str, torch.Tensor], SwinIRConfig]:
+    """A released SwinIR state dict (``network_swinir.SwinIR`` names:
+    ``layers.{i}.residual_group.blocks.{j}.attn.qkv.weight``,
+    ``…relative_position_bias_table``, ``layers.{i}.conv.{0,2,4}``,
+    ``conv_after_body.{0,2,4}``, ``conv_before_upsample.0``,
+    ``conv_up1`` / ``conv_up2`` / ``conv_hr`` / ``conv_last``) → (the
+    port's float32 state dict, the architecture read from the shapes:
+    width, depths, heads, MLP ratio, features).  The buffers
+    ``relative_position_index`` and ``attn_mask`` are dropped (the port
+    computes both); the port's :class:`models.swinir.SwinIR` has the
+    released names, so what is left maps to itself.  With ``cfg`` the
+    checkpoint must match it.  Only the 'nearest+conv' upsampler with the
+    '3conv' connection and 8×8 windows (a table of 15² rows) imports (the
+    real-world models')."""
+    sd = {k: _tensor(v) for k, v in state_dict.items()
+          if k.rsplit(".", 1)[-1] not in SWINIR_BUFFERS}
+    if ("conv_up2.weight" not in sd or "conv_after_body.4.weight" not in sd
+            or sd["conv_first.weight"].shape[1] != SwinIRConfig.channels):
+        raise ValueError("only RGB SwinIR x4 with upsampler 'nearest+conv' "
+                         "and resi_connection '3conv' imports")
+    depths, heads = [], []
+    while f"layers.{len(depths)}.conv.0.weight" in sd:
+        i, j = len(depths), 0
+        while f"layers.{i}.residual_group.blocks.{j}.norm1.weight" in sd:
+            j += 1
+        table = sd[f"layers.{i}.residual_group.blocks.0.attn."
+                   f"relative_position_bias_table"]
+        depths.append(j)
+        heads.append(table.shape[1])
+    blk = "layers.0.residual_group.blocks.0"
+    embed = sd["conv_first.weight"].shape[0]
+    tables = {k: v.shape[0] for k, v in sd.items()
+              if k.endswith("relative_position_bias_table")}
+    if any(rows != TABLE_ROWS for rows in tables.values()):
+        raise ValueError(f"only 8x8 windows import (relative-position "
+                         f"tables of {TABLE_ROWS} rows), got "
+                         f"{sorted(set(tables.values()))} rows")
+    inferred = SwinIRConfig(
+        embed_dim=embed, depths=tuple(depths), num_heads=tuple(heads),
+        mlp_ratio=sd[f"{blk}.mlp.fc1.weight"].shape[0] / embed,
+        num_feat=sd["conv_before_upsample.0.weight"].shape[0])
+    if cfg is not None and cfg != inferred:
+        raise ValueError(f"checkpoint architecture {inferred} != "
+                         f"configured {cfg}")
+    return sd, inferred
 
 
 def export_generator(state_dict: Dict[str, torch.Tensor],

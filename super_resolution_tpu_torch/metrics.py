@@ -194,7 +194,8 @@ _DRAIN_EVERY = 8192
 _LAUNCH_COUNTERS = {"dense_block": "dense_block",
                     "dense_block_bwd": "dense_block",
                     "fused_dense_block": "dense_block",
-                    "conv3x3": "conv3x3"}
+                    "conv3x3": "conv3x3",
+                    "window_attention": "window_attention"}
 
 
 def _launches() -> Dict[str, int]:

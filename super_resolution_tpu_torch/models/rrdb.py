@@ -88,26 +88,19 @@ from super_resolution_tpu_torch.ops.dense_block import (
     fused_dense_block,
     pack_weight,
 )
+from super_resolution_tpu_torch.models.tail import upsample_tail
 from super_resolution_tpu_torch.ops.upsample_conv import (
     nearest_up_conv_nchw,
     phase_kernels,
 )
 from super_resolution_tpu_torch.ops.shuffle import (
-    nearest_upsample,
     nearest_upsample_nhwc,
-    pixel_shuffle,
     pixel_shuffle_nhwc,
 )
 
 NHWC_IMPLS = ("pallas", "pallas_fused")   # the model runs NHWC inside
 CHAIN_IMPLS = ("pallas_cf", "pallas_cf_tail")   # blocks by dense_block
 _DENSE_BLOCK = dense_block   # a check may put another in dense_block's place
-
-
-def _on_nhwc(fn, x: torch.Tensor) -> torch.Tensor:
-    """``fn`` of an NHWC op on the channels-last storage of NCHW ``x``;
-    the result is NCHW in channels-last memory format again."""
-    return fn(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
 
 
 class Conv3x3(nn.Module):
@@ -373,31 +366,17 @@ class RRDBNet(nn.Module):
         slope = cfg.lrelu_slope
         fea = self.conv_first(x)
         trunk = self.trunk(fea)
-        if self.impl == "pallas_cf_tail":
+        kernel = self.impl == "pallas_cf_tail"
+        if kernel:
             # channels-last from here to conv_hr: the kernel's layout
             fea = self.conv_body.cf(trunk, False, slope) + fea
-            for u in range(1, cfg.n_upsample + 1):
-                conv = getattr(self, f"conv_up{u}")
-                if self._polyphase:
-                    fea = F.leaky_relu(conv.up(fea), slope)
-                elif cfg.upsampler == "nearest_conv":
-                    fea = conv.cf(_on_nhwc(nearest_upsample_nhwc, fea), True,
-                                  slope)
-                else:
-                    fea = _on_nhwc(lambda t: pixel_shuffle_nhwc(t, 2),
-                                   conv.cf(fea, True, slope))
-            return self.conv_last(self.conv_hr.cf(fea, True, slope))
-        fea = fea + self.conv_body(trunk)
-        for u in range(1, cfg.n_upsample + 1):
-            conv = getattr(self, f"conv_up{u}")
-            if self._polyphase:
-                fea = F.leaky_relu(conv.up(fea), slope)
-            elif cfg.upsampler == "nearest_conv":
-                fea = F.leaky_relu(conv(nearest_upsample(fea, 2)), slope)
-            else:
-                fea = pixel_shuffle(F.leaky_relu(conv(fea), slope), 2)
-        fea = F.leaky_relu(self.conv_hr(fea), slope)
-        return self.conv_last(fea)
+        else:
+            fea = fea + self.conv_body(trunk)
+        return upsample_tail(
+            fea, [getattr(self, f"conv_up{u}")
+                  for u in range(1, cfg.n_upsample + 1)],
+            self.conv_hr, self.conv_last, slope=slope, kernel=kernel,
+            polyphase=self._polyphase, upsampler=cfg.upsampler)
 
     def _forward_nhwc(self, x: torch.Tensor) -> torch.Tensor:
         """``pallas`` and ``pallas_fused``: NHWC throughout; LeakyReLU in

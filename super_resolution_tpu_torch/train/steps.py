@@ -39,7 +39,11 @@ from typing import Callable, Dict
 
 import torch
 
-from super_resolution_tpu_torch.config import TrainConfig, resolve_conv_impl
+from super_resolution_tpu_torch.config import (
+    SwinIRConfig,
+    TrainConfig,
+    resolve_conv_impl,
+)
 from super_resolution_tpu_torch.data.augment import (
     denormalize,
     preprocess_batch,
@@ -259,11 +263,18 @@ def make_infer_fn(cfg: TrainConfig, state_dict: Dict[str, torch.Tensor],
                   device: str | torch.device = "cuda"
                   ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Normalised NHWC LR → normalised NHWC SR forward of the generator
-    with ``state_dict`` (the port's float32 names, loaded strictly), built
-    on ``device`` and cast to ``cfg.compute_dtype`` once, here."""
+    that ``cfg.generator`` names (RRDBNet, or SwinIR for a
+    :class:`config.SwinIRConfig`) with ``state_dict`` (the port's float32
+    names, loaded strictly), built on ``device`` and cast to
+    ``cfg.compute_dtype`` once, here."""
     device = resolve_device(device)
     dtype = compute_dtype(cfg)
-    model = RRDBNet(cfg.generator)
+    if isinstance(cfg.generator, SwinIRConfig):
+        from super_resolution_tpu_torch.models.swinir import SwinIR
+
+        model = SwinIR(cfg.generator)
+    else:
+        model = RRDBNet(cfg.generator)
     model.load_state_dict(state_dict, strict=True)
     model = model.to(device).eval().prepare(dtype)
 

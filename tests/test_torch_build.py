@@ -91,11 +91,13 @@ def test_mma_sync_tile_serves_only_the_backward():
     """The bf16 mma.sync tile is gone with its last user: the bf16
     backward's data gradient runs on the Hopper tile (its own epilogues)
     and its weight gradient on wgmma fed by TMA; the wrapper re-lays the
-    weights with one indexed copy, not a flip and a transpose per conv."""
+    weights with one indexed copy, not a flip and a transpose per conv.
+    No conv source runs mma.sync; the window attention's 64-token tiles
+    do (``window_attention.cu``, no conv)."""
     users = [n for n in os.listdir(build.CSRC)
              if "conv_tile_bf16" in _source(n)
              or "mma.sync.aligned.m16n8k16" in _source(n)]
-    assert users == []
+    assert users == ["window_attention.cu"]
     bwd = _source("dense_block_bwd.cu")
     assert '#include "conv3x3_wgmma.cuh"' in bwd
     assert "wgc::launch<float, 64, true>" in bwd

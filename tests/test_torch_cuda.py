@@ -929,3 +929,135 @@ def test_chain_rejects_float32_on_the_card(cuda):
     x, ws, bs = _block((1, 16, 16, 16), 8, torch.float32, cuda)[:3]
     with pytest.raises(TypeError, match="bfloat16"):
         dense_block_chain(x, [[(ws, bs)]], res_scale=0.2, slope=0.2)
+
+
+# SwinIR: the window-attention kernel against its plain version, the
+# model against the float32 reference, and RRDBNet's tail after its move
+# into models/tail.py.
+
+@pytest.mark.parametrize("hp,wp", [(64, 64), (72, 104)])
+@pytest.mark.parametrize("shift", [0, 4])
+def test_window_attention_kernel_matches_plain(cuda, hp, wp, shift):
+    """SwinIR-L's widths (240, 8 heads of 30), bf16 qkv of order 1 and a
+    table N(0, 1): the kernel within two bf16 ULPs of the float32 plain
+    version (its output is rounded once, P once for P·v), one launch,
+    the windows counted; the plain version at the other shift lies far
+    outside."""
+    from super_resolution_tpu_torch.metrics import recording, span_report
+    from super_resolution_tpu_torch.ops import window_attention as wa
+
+    gen = torch.Generator(device=cuda).manual_seed(hp + shift)
+    qkv = torch.randn(2, hp, wp, 720, generator=gen,
+                      device=cuda).to(torch.bfloat16)
+    table = torch.randn(8, 225, generator=gen, device=cuda)
+    before = wa.window_attention.launches
+    with recording():
+        got = wa.window_attention(qkv, table, 8, shift)
+        counters = span_report()["counters"]
+    assert wa.window_attention.launches == before + 1
+    assert counters["window_attention.windows"] == 2 * hp * wp // 64 * 8
+    assert counters.get("window_attention.shifted", 0) == int(shift > 0)
+    ref = wa.window_attention_plain(qkv.float(), table, 8, shift)
+    atol, rtol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), ref, atol=atol, rtol=rtol)
+    other = wa.window_attention_plain(qkv.float(), table, 8, 4 - shift)
+    assert (got.float() - other).abs().max() > 20 * atol
+
+
+def test_window_attention_rejects_instead_of_falling_back(cuda):
+    from super_resolution_tpu_torch.ops import window_attention as wa
+
+    qkv = torch.zeros(1, 16, 16, 720, device=cuda)
+    table = torch.zeros(8, 225, device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        wa.window_attention(qkv, table, 8, 0)
+    with pytest.raises(ValueError, match="table"):
+        wa.window_attention(qkv.to(torch.bfloat16), table.t(), 8, 0)
+
+
+SWIN_CFG = dict(embed_dim=240, depths=(2, 2), num_heads=(8, 8),
+                window_size=8, mlp_ratio=2.0, num_feat=64)
+
+
+def _swinir_on_the_card(cuda, released, x):
+    from super_resolution_tpu_torch.import_torch import import_swinir
+    from super_resolution_tpu_torch.models.swinir import SwinIR
+
+    sd, cfg = import_swinir(released)
+    m = SwinIR(cfg)
+    m.load_state_dict(sd)
+    m = m.to(cuda).prepare(torch.bfloat16)
+    with torch.inference_mode():
+        return m(x.to(cuda)).cpu()
+
+
+def test_swinir_on_the_card_matches_the_reference(cuda, monkeypatch):
+    """SwinIR at SwinIR-L's widths, two RSTBs of a plain and a shifted
+    layer, in bf16 on the card against the float32 reference on the CPU,
+    on a 100 × 84 frame (padded to 104 × 88): the largest error within
+    2**-5 of the largest output (bf16 rounding through 4 layers and 9
+    convs, and of the bf16 residual stream at each of its 10 additions:
+    2**-5.9 on the card), and the mean error four times under that of
+    the same model with the cyclic shift skipped on the card.  The weights are the
+    benchmark cell's kind of draw, at which the attention moves the
+    output: tables ×3, the trunk's convs ×√6 (Kaiming's scale)."""
+    import swinir_reference as R
+    from super_resolution_tpu_torch.models import swinir as sw
+    from super_resolution_tpu_torch.ops import window_attention as wa
+
+    released = R.released_state_dict(SWIN_CFG, 7)
+    tail = ("conv_before_upsample", "conv_up", "conv_hr", "conv_last")
+    for k, v in released.items():
+        if k.endswith("relative_position_bias_table"):
+            released[k] = 3 * v
+        elif v.dim() == 4 and not k.startswith(tail):
+            released[k] = 6 ** 0.5 * v
+    x = torch.rand(1, 100, 84, 3, generator=torch.Generator()
+                   .manual_seed(8)) - 0.45
+    with torch.no_grad():
+        ref = R.forward(released, SWIN_CFG, x.permute(0, 3, 1, 2)
+                        ).permute(0, 2, 3, 1)
+    before = (wa.window_attention.launches, c3_ops.conv3x3.launches)
+    got = _swinir_on_the_card(cuda, released, x)
+    assert (wa.window_attention.launches - before[0],
+            c3_ops.conv3x3.launches - before[1]) == (4, 2 * 2 + 2 + 1 + 1 + 3)
+    err = (got - ref).abs()
+    real = sw.window_attention
+    monkeypatch.setattr(sw, "window_attention",
+                        lambda qkv, table, heads, shift:
+                        real(qkv, table, heads, 0))
+    fault = (_swinir_on_the_card(cuda, released, x) - ref).abs()
+    print(f"swinir on the card: error max {err.max().item():.3e} mean "
+          f"{err.mean().item():.3e} (largest output "
+          f"{ref.abs().max().item():.3e}); shift skipped: mean "
+          f"{fault.mean().item():.3e}")
+    assert err.max() <= 2.0 ** -5 * ref.abs().max()
+    assert fault.mean() > 4 * err.mean()
+
+
+def test_rrdb_forward_after_the_tail_move(cuda):
+    """The flagship bf16 forward (23 blocks, auto and pallas_cf_tail) bit
+    for bit against the tail as models/rrdb.py computed it before it
+    moved into models/tail.py, with the chain's figures per forward: 345
+    dense-block launches, 68 blocks chained, 1 input copy."""
+    from super_resolution_tpu_torch.metrics import recording, span_report
+    from test_torch_swinir import _tail_before_the_move
+
+    x = torch.randn(1, 32, 40, 3, generator=torch.Generator()
+                    .manual_seed(3)).to(cuda)
+    for impl in ("auto", "pallas_cf_tail"):
+        cfg = GeneratorConfig(conv_impl=impl, init="torch_default")
+        model = rrdb.RRDBNet(cfg, torch.Generator().manual_seed(2)).to(cuda)
+        model.prepare(torch.bfloat16)
+        xc = x.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous()
+        with torch.inference_mode():
+            with recording():
+                got = model._forward_nchw(xc)
+                torch.cuda.synchronize()
+                counters = span_report()["counters"]
+            fea = model.conv_first(xc)
+            want = _tail_before_the_move(model, fea, model.trunk(fea))
+        assert torch.equal(got, want), impl
+        assert counters["launches.dense_block"] == 345
+        assert counters["dense_block.chained"] == 68
+        assert counters["dense_block.input_copies"] == 1
