@@ -45,7 +45,13 @@ and prints no result line:
    the plain version and the library's (roll, partition, one
    ``scaled_dot_product_attention`` with the bias and mask as its mask),
    the bound; SwinIR-L's forward at 512² and 1024², one launch per Swin
-   layer.
+   layer and 110 add-and-LayerNorm launches per forward.
+   add-layernorm (after swinir): the add-and-LayerNorm kernel against
+   PyTorch's bf16 add and ``F.layer_norm`` at 240, 180 and 60 channels,
+   with a branch and without (``s`` bit for bit, ``h`` within one bf16
+   ULP); at (1, 1024², 240) its ms in turns with the plain version and
+   the library's (``x + b``, then ``F.layer_norm``), the bound (4 or 2
+   passes of the stream at 3.35 TB/s) and the roofline share.
 3. model: the full-width 23-block RRDBNet in bf16 on 8×128² LR tiles
    (seeded random weights) through ``train.steps.make_infer_fn``: the
    launch count of one forward, agreement with the same forward through
@@ -228,8 +234,9 @@ Then the last slice's tools, each a subprocess (after build-cache):
    --conv_impl pallas_cf``: completes, every printed number finite, 552
    backward launches per training step; the PSNR model against bicubic
    and the GAN's sharpening recorded, not gated.
-29. the ``kernels`` JSON line (the window attention's last: its
-   launches are SwinIR-L's forwards of the swinir phase; the tools' launches in
+29. the ``kernels`` JSON line (the window attention's and the
+   add-and-LayerNorm kernel's last: their launches are SwinIR-L's
+   forwards of the swinir phase; the tools' launches in
    ``launches_tools_path``, the bench's and eval_batch's in
    ``launches_bench_path`` and ``launches_eval_batch_path``), the card's
    name and power limit as nvidia-smi prints them, then the ``ok`` JSON
@@ -724,6 +731,85 @@ def window_attention_sdpa(qkv, heads, shift, bias_mask):
     return torch.roll(o, (shift, shift), (1, 2)) if shift else o
 
 
+def bf16_ulp(t):
+    """One bf16 ULP at each value of ``t`` (8 significant bits), never
+    below the ULP at 2**-8 (the kernel's statistics are summed in another
+    order than PyTorch's: a float32 difference far under that)."""
+    import torch
+
+    _, e = torch.frexp(t.float().abs().clamp(min=2.0 ** -8))
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+def add_layernorm_phase():
+    """The add-and-LayerNorm kernel (``csrc/add_layernorm.cu``) against
+    PyTorch's bf16 add and ``F.layer_norm`` on the card, with a branch
+    and without, at SwinIR-L's 240 channels (1024², 72 x 104, and 37 x
+    41 rows, no multiple of a block's 4), SwinIR-M's 180 and the
+    lightweight model's 60: ``s`` bit for bit, ``h`` within one bf16 ULP
+    (:func:`bf16_ulp`).  At (1, 1024², 240) its ms in turns with the
+    plain version and the library's (``x + b``, then ``F.layer_norm``:
+    the same PyTorch calls as the plain version), against its bound:
+    x and the branch read, s and h written (4 passes of 503 MB), or x
+    read and h written (2), at 3.35 TB/s."""
+    import torch
+    import torch.nn.functional as F
+
+    from super_resolution_tpu_torch.ops import add_layernorm as aln
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    checks, ms = {}, {}
+    for shape in ((1, 1024, 1024, 240), (2, 72, 104, 240), (1, 37, 41, 240),
+                  (1, 64, 64, 180), (1, 64, 64, 60)):
+        c = shape[-1]
+        x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5
+             ).to(torch.bfloat16)
+        br = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        w = (1 + 0.3 * torch.randn(c, generator=gen, device=dev)
+             ).to(torch.bfloat16)
+        b = (0.5 * torch.randn(c, generator=gen, device=dev)
+             ).to(torch.bfloat16)
+        for kind, branch in (("add", br), ("norm", None)):
+            got = aln.add_layernorm(x, branch, w, b, 1e-5)
+            s_ref = x if branch is None else x + branch
+            s_equal = branch is None or torch.equal(got[0], s_ref)
+            h = got if branch is None else got[1]
+            ref = F.layer_norm(s_ref, (c,), w, b, 1e-5)
+            err = (h.float() - ref.float()).abs()
+            name = "x".join(map(str, shape)) + "_" + kind
+            checks[name] = dict(s_bit_for_bit=s_equal,
+                                max_abs_err=err.max().item(),
+                                max_ulps=(err / bf16_ulp(ref)).max().item())
+            del got, s_ref, h, ref, err
+            if not s_equal or checks[name]["max_ulps"] > 1:
+                fail(f"add_layernorm {name}: {checks[name]} against "
+                     f"PyTorch's add and LayerNorm")
+            if shape[1] != 1024:
+                continue
+            ms[kind] = turns({
+                "kernel": lambda: aln.add_layernorm(x, branch, w, b, 1e-5),
+                "plain": lambda: aln.add_layernorm_plain(x, branch, w, b,
+                                                         1e-5),
+                "library": lambda: F.layer_norm(
+                    x if branch is None else x + branch, (c,), w, b,
+                    1e-5)}, 20)
+        del x, br
+    torch.cuda.empty_cache()
+    pass_ms = 1024 * 1024 * 240 * 2 / PEAK_BYTES * 1e3
+    bound = {"add": 4 * pass_ms, "norm": 2 * pass_ms}
+    out = dict(checks=checks,
+               kernel_ms={k: v["kernel"] for k, v in ms.items()},
+               plain_ms={k: v["plain"] for k, v in ms.items()},
+               library_ms={k: v["library"] for k, v in ms.items()},
+               bound_ms=bound,
+               roofline={k: bound[k] / v["kernel"] for k, v in ms.items()},
+               max_abs_err=max(v["max_abs_err"] for v in checks.values()),
+               max_ulps=max(v["max_ulps"] for v in checks.values()))
+    print("[add-layernorm] " + json.dumps(out), flush=True)
+    return out
+
+
 def swinir_phase():
     """SwinIR's window attention (``csrc/window_attention.cu``) against
     its plain version at SwinIR-L's widths (240, 8 heads of 30), shift 0
@@ -739,6 +825,7 @@ def swinir_phase():
 
     from super_resolution_tpu_torch.config import preset
     from super_resolution_tpu_torch.models.swinir import SwinIR
+    from super_resolution_tpu_torch.ops import add_layernorm as aln
     from super_resolution_tpu_torch.ops import window_attention as wa
     from super_resolution_tpu_torch.train.steps import make_infer_fn
 
@@ -791,15 +878,19 @@ def swinir_phase():
     cfg = preset("swinir_l_real_x4")
     model = SwinIR(cfg.generator, torch.Generator().manual_seed(19))
     infer = make_infer_fn(cfg, model.state_dict(), dev)
-    frames, launches = {}, wa.window_attention.launches
+    frames = {}
+    launches = (wa.window_attention.launches, aln.add_layernorm.launches)
     for n in (512, 1024):
         x = torch.rand(1, n, n, 3, device=dev) - 0.45
         infer(x)
-        before = wa.window_attention.launches
+        before = (wa.window_attention.launches, aln.add_layernorm.launches)
         frames[n] = time_ms(lambda: infer(x), 2)
-        if wa.window_attention.launches - before != 2 * 54:
+        if wa.window_attention.launches - before[0] != 2 * 54:
             fail("SwinIR-L: not one attention launch per Swin layer")
-    launches = wa.window_attention.launches - launches
+        if aln.add_layernorm.launches - before[1] != 2 * 110:
+            fail("SwinIR-L: not 110 add-and-LayerNorm launches a forward")
+    launches, ln_launches = (wa.window_attention.launches - launches[0],
+                             aln.add_layernorm.launches - launches[1])
 
     def mean(key):
         return (ms[0][key] + ms[4][key]) / 2
@@ -812,6 +903,7 @@ def swinir_phase():
                bound_ms_1024=bound_ms, roofline=bound_ms / mean("kernel"),
                forward_ms={str(k): v for k, v in frames.items()},
                launches_forward=launches,
+               add_layernorm_launches_forward=ln_launches,
                max_abs_err=max(checks[f"1024x1024_s{s}"]["max_abs_err"]
                                for s in (0, 4)),
                ms=mean("kernel"), plain_ms=mean("plain"),
@@ -4157,6 +4249,7 @@ def main() -> int:
     kern = kernel_phase()
     chain_phase()
     swin = swinir_phase()
+    aln = add_layernorm_phase()
     kern_bwd = bwd_kernel_phase()
     model = model_phase()
     t_new = time.perf_counter()
@@ -4381,6 +4474,27 @@ def main() -> int:
         # roll, partition, one scaled_dot_product_attention with the
         # bias and mask as its additive mask, reverse, roll back
         "library_ms": swin["library_ms"],
+    }, {
+        "name": "add_layernorm",
+        "route": "cuda",
+        "source": "super_resolution_tpu_torch/csrc/add_layernorm.cu",
+        # the JAX package has no LayerNorm
+        "replaces": None,
+        # SwinIR-L's forwards of the swinir phase: 110 a forward
+        "launches": swin["add_layernorm_launches_forward"],
+        # (1, 1024, 1024, 240) bf16 with a branch (108 of SwinIR-L's
+        # 110 calls); both cases, "add" and "norm", under *_by_kind
+        "max_abs_err": aln["max_abs_err"],
+        "ms": aln["kernel_ms"]["add"],
+        "plain_ms": aln["plain_ms"]["add"],
+        "bound_ms": aln["bound_ms"]["add"],
+        "bound_by": "bytes",
+        # x + b, then F.layer_norm
+        "library_ms": aln["library_ms"]["add"],
+        "ms_by_kind": aln["kernel_ms"],
+        "plain_ms_by_kind": aln["plain_ms"],
+        "bound_ms_by_kind": aln["bound_ms"],
+        "library_ms_by_kind": aln["library_ms"],
     }]}))
     print(f"[time] chip_smoke took {time.perf_counter() - t_start:.1f} s "
           f"from the card check to the result", file=sys.stderr, flush=True)

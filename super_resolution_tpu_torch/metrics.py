@@ -195,7 +195,8 @@ _LAUNCH_COUNTERS = {"dense_block": "dense_block",
                     "dense_block_bwd": "dense_block",
                     "fused_dense_block": "dense_block",
                     "conv3x3": "conv3x3",
-                    "window_attention": "window_attention"}
+                    "window_attention": "window_attention",
+                    "add_layernorm": "add_layernorm"}
 
 
 def _launches() -> Dict[str, int]:

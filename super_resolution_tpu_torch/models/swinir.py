@@ -24,18 +24,32 @@ dict, less the buffers ``relative_position_index`` and ``attn_mask``
   1e-5; the attention is :func:`ops.window_attention.window_attention`
   on the qkv Linear's channels-last output.
 
+Every residual add that a LayerNorm reads next (each layer's attention
+add, read by its ``norm2``; each MLP add but an RSTB's last, read by the
+next layer's ``norm1``; each RSTB's residual, read by the next RSTB's
+first ``norm1`` or by ``norm``) is one
+:func:`ops.add_layernorm.add_layernorm` call with that LayerNorm's
+parameters: 2·Σ depths of them a forward, 108 in SwinIR-L.  So the
+branch rides along with the stream until the next LayerNorm adds it
+(:meth:`SwinIR._trunk`, which holds both in one frame so that no tensor
+outlives its last reader).  ``patch_embed.norm`` and the first ``norm1``
+run back to back through the same call without a branch; the RSTBs'
+last MLP adds and ``conv_after_body`` + ``conv_first`` output, which
+convs read, stay plain adds.
+
 The map stays channels-last (B, H, W, C) throughout, which is also
 SwinIR's token layout.  Every 3×3 conv runs :func:`ops.conv3x3.conv3x3`
 (the single-conv kernel on the card; on the tail through
 :meth:`models.rrdb.Conv3x3.cf`), the 1×1 conv is a Linear, and the
 '3conv' stacks' E/4 = 60 channels are padded to 64 with zero weights and
-biases when the model is prepared, so no call pads or copies; LayerNorm,
-the Linears and GELU are PyTorch's ops in the compute dtype, and so is the
-token stream between them.  On CPU tensors every kernel's plain version
-runs; in float32 with TF32 off.
+biases when the model is prepared, so no call pads or copies; the Linears
+and GELU are PyTorch's ops in the compute dtype, and so is the token
+stream between them.  On CPU tensors every kernel's plain version runs
+(for the adds and LayerNorms PyTorch's own ops); in float32 with TF32
+off.
 
 :meth:`SwinIR.prepare` casts to the compute dtype and packs once, after
-the weights are loaded, and on the card builds the attention kernel.
+the weights are loaded, and on the card builds the kernels.
 Inference only.  While recording (:mod:`metrics`) each RSTB is the
 device span ``swinir.rstb`` and the reflect pad counts its LR pixels in
 ``swinir.pad_px``.
@@ -54,6 +68,7 @@ from super_resolution_tpu_torch.device import no_tf32
 from super_resolution_tpu_torch.metrics import count, span
 from super_resolution_tpu_torch.models.rrdb import Conv3x3
 from super_resolution_tpu_torch.models.tail import upsample_tail
+from super_resolution_tpu_torch.ops.add_layernorm import add_layernorm
 from super_resolution_tpu_torch.ops.conv3x3 import conv3x3
 from super_resolution_tpu_torch.ops.dense_block import pack_weight
 from super_resolution_tpu_torch.ops.window_attention import (
@@ -150,11 +165,12 @@ def _cast(module: nn.Module, dtype: torch.dtype):
 
 class SwinLayer(nn.Module):
     """One Swin layer (``SwinTransformerBlock``) on a (B, Hp, Wp, C)
-    map."""
+    map: its parameters and its two branches; :meth:`SwinIR._trunk` adds
+    them to the stream."""
 
     def __init__(self, dim: int, heads: int, shift: int, mlp_ratio: float):
         super().__init__()
-        self.dim, self.heads, self.shift = dim, heads, shift
+        self.heads, self.shift = heads, shift
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
         self.attn = _Attention(dim, heads)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
@@ -171,14 +187,22 @@ class SwinLayer(nn.Module):
                    "fc2": _cast(self.mlp.fc2, dtype),
                    "table": table.t().float().contiguous()}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        p, c = self._p, (self.dim,)
-        h = F.layer_norm(x, c, *p["n1"], LN_EPS)
+    def branches(self) -> tuple:
+        """((norm1's (weight, bias), the attention branch), (norm2's, the
+        MLP branch)): the layer's two residual branches in turn, each a
+        function of its LayerNorm's output that is added back into the
+        stream."""
+        return (self._p["n1"], self._attention), (self._p["n2"], self._mlp)
+
+    def _attention(self, h: torch.Tensor) -> torch.Tensor:
+        p = self._p
         a = window_attention(F.linear(h, *p["qkv"]), p["table"], self.heads,
                              self.shift)
-        x = x + F.linear(a, *p["proj"])
-        h = F.layer_norm(x, c, *p["n2"], LN_EPS)
-        return x + F.linear(F.gelu(F.linear(h, *p["fc1"])), *p["fc2"])
+        return F.linear(a, *p["proj"])
+
+    def _mlp(self, h: torch.Tensor) -> torch.Tensor:
+        p = self._p
+        return F.linear(F.gelu(F.linear(h, *p["fc1"])), *p["fc2"])
 
 
 class _Group(nn.Module):
@@ -189,7 +213,7 @@ class _Group(nn.Module):
 
 class RSTB(nn.Module):
     """Residual Swin Transformer Block: Swin layers (shift 0, w/2 in
-    turn), '3conv', plus the input."""
+    turn), '3conv', plus the input (run by :meth:`SwinIR._trunk`)."""
 
     def __init__(self, dim: int, depth: int, heads: int, mlp_ratio: float):
         super().__init__()
@@ -197,12 +221,6 @@ class RSTB(nn.Module):
             [SwinLayer(dim, heads, 0 if j % 2 == 0 else WINDOW // 2,
                        mlp_ratio) for j in range(depth)])
         self.conv = _ThreeConv(dim)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x
-        for layer in self.residual_group.blocks:
-            h = layer(h)
-        return x + self.conv(h)
 
 
 class _PatchEmbed(nn.Module):
@@ -277,9 +295,10 @@ class SwinIR(nn.Module):
 
     def prepare(self, dtype: torch.dtype) -> "SwinIR":
         """Cast to the compute dtype and pack the convs' weights, on the
-        parameters' device, and there build the attention kernel and the
-        3×3 conv's together (an RRDB model never builds the first).  Call
-        after loading weights or moving the model; returns self."""
+        parameters' device, and there build the attention kernel, the
+        add-and-LayerNorm kernel and the 3×3 conv's together (an RRDB
+        model never builds the first two).  Call after loading weights or
+        moving the model; returns self."""
         for m in self.modules():
             if isinstance(m, (SwinLayer, _ThreeConv)):
                 m.prepare(dtype)
@@ -294,8 +313,30 @@ class SwinIR(nn.Module):
         if self._device.type == "cuda":
             from super_resolution_tpu_torch.build import load_all
 
-            load_all(("window_attention", "conv3x3"))
+            load_all(("window_attention", "add_layernorm", "conv3x3"))
         return self
+
+    def _trunk(self, fea: torch.Tensor) -> torch.Tensor:
+        """``norm`` of the RSTBs on ``patch_embed.norm(fea)``.  The stream
+        t and the branch y not yet added to it live in this one frame: each
+        add is the :func:`ops.add_layernorm.add_layernorm` call of the
+        LayerNorm that reads the sum, and every tensor it replaces is
+        dropped before the next branch is built."""
+        t, y = add_layernorm(fea, None, *self._ln["patch"], LN_EPS), None
+        for rstb in self.layers:
+            with span("swinir.rstb", fea.device):
+                x = None                    # the RSTB's input
+                for layer in rstb.residual_group.blocks:
+                    for norm, branch in layer.branches():
+                        if y is None:       # the first norm1
+                            h = add_layernorm(t, None, *norm, LN_EPS)
+                        else:
+                            t, h = add_layernorm(t, y, *norm, LN_EPS)
+                        x = t if x is None else x
+                        del y               # in t now: free it first
+                        y = branch(h)
+                t, y = x, rstb.conv(t + y)
+        return add_layernorm(t, y, *self._ln["norm"], LN_EPS)[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self._dtype is None:
@@ -306,7 +347,6 @@ class SwinIR(nn.Module):
                                f"{self._device}")
         cfg = self.cfg
         b, h, w, _ = x.shape
-        e = (cfg.embed_dim,)
         ph, pw = -h % WINDOW, -w % WINDOW
         count("swinir.pad_px", b * ((h + ph) * (w + pw) - h * w))
         with no_tf32():
@@ -315,12 +355,7 @@ class SwinIR(nn.Module):
                           mode="reflect").permute(0, 2, 3, 1)
             x = x.to(self._dtype).contiguous()
             fea = self.conv_first(x)
-            t = F.layer_norm(fea, e, *self._ln["patch"], LN_EPS)
-            for layer in self.layers:
-                with span("swinir.rstb", x.device):
-                    t = layer(t)
-            t = F.layer_norm(t, e, *self._ln["norm"], LN_EPS)
-            fea = self.conv_after_body(t) + fea
+            fea = self.conv_after_body(self._trunk(fea)) + fea
             fea = self.conv_before_upsample[0](fea, act=True,
                                                slope=BEFORE_UPSAMPLE_SLOPE)
             out = upsample_tail(fea.permute(0, 3, 1, 2), self.ups(),

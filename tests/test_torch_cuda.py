@@ -4,8 +4,9 @@ the experiment variants v3–v6 routed to the dense-block kernel and the
 int8 kernel of v8, against their plain versions, their launch counts and
 input checks, the generator under every conv impl (lax included)
 with either tail, the RRDB trunk on the chain bit for bit against the
-same trunk block by block, a training step, the CLI, ``eval_batch`` and the
-headline bench on CUDA.  Marked
+same trunk block by block, SwinIR's window-attention and add-and-LayerNorm
+kernels and its bf16 forward, a training step, the CLI, ``eval_batch``
+and the headline bench on CUDA.  Marked
 ``cuda``; each skips where torch sees no CUDA device.  On a machine
 with a card (no JAX needed there):
 
@@ -931,9 +932,9 @@ def test_chain_rejects_float32_on_the_card(cuda):
         dense_block_chain(x, [[(ws, bs)]], res_scale=0.2, slope=0.2)
 
 
-# SwinIR: the window-attention kernel against its plain version, the
-# model against the float32 reference, and RRDBNet's tail after its move
-# into models/tail.py.
+# SwinIR: the window-attention kernel and the add-and-LayerNorm kernel
+# against their plain versions, the model against the float32 reference,
+# and RRDBNet's tail after its move into models/tail.py.
 
 @pytest.mark.parametrize("hp,wp", [(64, 64), (72, 104)])
 @pytest.mark.parametrize("shift", [0, 4])
@@ -975,6 +976,80 @@ def test_window_attention_rejects_instead_of_falling_back(cuda):
         wa.window_attention(qkv.to(torch.bfloat16), table.t(), 8, 0)
 
 
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ULP at each value of ``t`` (8 significant bits), never
+    below the ULP at 2**-8."""
+    _, e = torch.frexp(t.float().abs().clamp(min=2.0 ** -8))
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.parametrize("shape", [(1, 1024, 1024, 240), (2, 72, 104, 240),
+                                   (1, 64, 64, 180), (1, 64, 64, 60),
+                                   (1, 37, 41, 240), (3, 37, 41, 180)])
+@pytest.mark.parametrize("with_branch", [True, False])
+def test_add_layernorm_kernel_matches_plain(cuda, shape, with_branch):
+    """The kernel against PyTorch's bf16 add and ``F.layer_norm`` on the
+    card: ``s`` bit for bit; ``h`` within one bf16 ULP of the value
+    (below 2**-8, of 2**-8: the kernel sums the statistics in another
+    order than PyTorch's Welford pass, a float32 difference far under
+    that).  37 × 41 and 3 × 37 × 41 rows are no multiple of a block's 4
+    rows: the last block's spare warps leave.  Weight
+    and bias swapped, and the branch dropped, each fail that tolerance.
+    One launch a call, counted in ``add_layernorm.calls`` too;
+    ``add_layernorm.fused`` counts those with a branch."""
+    import torch.nn.functional as F
+
+    from super_resolution_tpu_torch.metrics import recording, span_report
+    from super_resolution_tpu_torch.ops import add_layernorm as aln
+
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device=cuda) * 2 + 0.5
+         ).to(torch.bfloat16)
+    branch = torch.randn(shape, generator=gen, device=cuda
+                         ).to(torch.bfloat16) if with_branch else None
+    weight = (1 + 0.3 * torch.randn(c, generator=gen, device=cuda)
+              ).to(torch.bfloat16)
+    bias = (0.5 * torch.randn(c, generator=gen, device=cuda)
+            ).to(torch.bfloat16)
+    before = aln.add_layernorm.launches
+    with recording():
+        got = aln.add_layernorm(x, branch, weight, bias, 1e-5)
+        counters = span_report()["counters"]
+    assert aln.add_layernorm.launches == before + 1
+    assert counters["add_layernorm.calls"] == 1
+    assert counters.get("add_layernorm.fused", 0) == int(with_branch)
+    s_ref = x if branch is None else x + branch
+    if with_branch:
+        s, h = got
+        assert torch.equal(s, s_ref)
+    else:
+        h = got
+    ref = F.layer_norm(s_ref, (c,), weight, bias, 1e-5)
+    ulp = _bf16_ulp(ref)
+    err = (h.float() - ref.float()).abs()
+    assert (err <= ulp).all(), f"{(err / ulp).max().item()} ULP"
+    swapped = aln.add_layernorm(x, branch, bias, weight, 1e-5)
+    swapped = swapped[1] if with_branch else swapped
+    assert ((swapped.float() - ref.float()).abs() > ulp).any()
+    if with_branch:
+        dropped = aln.add_layernorm(x, None, weight, bias, 1e-5)
+        assert ((dropped.float() - ref.float()).abs() > ulp).any()
+
+
+def test_add_layernorm_rejects_instead_of_falling_back(cuda):
+    from super_resolution_tpu_torch.ops import add_layernorm as aln
+
+    x = torch.zeros(4, 240, device=cuda)
+    w, b = torch.ones(240, device=cuda), torch.zeros(240, device=cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        aln.add_layernorm(x, x, w, b, 1e-5)
+    xb = torch.zeros(4 * 240 + 4, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="launch failed"):  # misaligned
+        aln.add_layernorm(xb[4:].view(4, 240), None, w.bfloat16(),
+                          b.bfloat16(), 1e-5)
+
+
 SWIN_CFG = dict(embed_dim=240, depths=(2, 2), num_heads=(8, 8),
                 window_size=8, mlp_ratio=2.0, num_feat=64)
 
@@ -1003,6 +1078,7 @@ def test_swinir_on_the_card_matches_the_reference(cuda, monkeypatch):
     output: tables ×3, the trunk's convs ×√6 (Kaiming's scale)."""
     import swinir_reference as R
     from super_resolution_tpu_torch.models import swinir as sw
+    from super_resolution_tpu_torch.ops import add_layernorm as aln
     from super_resolution_tpu_torch.ops import window_attention as wa
 
     released = R.released_state_dict(SWIN_CFG, 7)
@@ -1017,10 +1093,21 @@ def test_swinir_on_the_card_matches_the_reference(cuda, monkeypatch):
     with torch.no_grad():
         ref = R.forward(released, SWIN_CFG, x.permute(0, 3, 1, 2)
                         ).permute(0, 2, 3, 1)
-    before = (wa.window_attention.launches, c3_ops.conv3x3.launches)
-    got = _swinir_on_the_card(cuda, released, x)
+    before = (wa.window_attention.launches, c3_ops.conv3x3.launches,
+              aln.add_layernorm.launches)
+
+    def no_library_layer_norm(*args, **kw):
+        raise AssertionError("PyTorch's LayerNorm on the card path")
+
+    with monkeypatch.context() as patch:
+        patch.setattr(torch.nn.functional, "layer_norm",
+                      no_library_layer_norm)
+        got = _swinir_on_the_card(cuda, released, x)
+    # 2 · Σ depths adds with the next LayerNorm, and the two at the head
     assert (wa.window_attention.launches - before[0],
-            c3_ops.conv3x3.launches - before[1]) == (4, 2 * 2 + 2 + 1 + 1 + 3)
+            c3_ops.conv3x3.launches - before[1],
+            aln.add_layernorm.launches - before[2]) == (
+                4, 2 * 2 + 2 + 1 + 1 + 3, 2 * 4 + 2)
     err = (got - ref).abs()
     real = sw.window_attention
     monkeypatch.setattr(sw, "window_attention",
