@@ -17,9 +17,10 @@ port's headline bench, on the CPU.
   chain: one JSON line with ``bench.py``'s keys, the forwards through
   the dense-block wrapper, no kernel launch on the CPU; and ``python -m
   super_resolution_tpu_torch.bench`` without a card refuses.
-- ``chip_smoke.py``'s ``[eval-batch]`` checks at 23 blocks, 16 filters,
-  the plain dense block standing in for the kernel: they pass it, and
-  fail a dropped tap planted into the "kernel"'s weights.
+- ``eval_batch``'s card checks (``tests/torch_checks.py``) at 23
+  blocks, 16 filters, the plain dense block standing in for the kernel:
+  they pass it, and fail a dropped tap planted into the "kernel"'s
+  weights.
 - ``chip_smoke.py``'s ``[grad-bench]`` bound, on ``tools.grad_bench``'s
   seeded block at (2, 64, 24²) bf16, where the plain block stands in for
   the kernels: its dx is within (1 + delta) times cuDNN's distance from
@@ -30,9 +31,7 @@ One torch thread per test.
 """
 
 import dataclasses
-import functools
 import importlib
-import importlib.util
 import json
 import os
 import subprocess
@@ -70,6 +69,12 @@ from super_resolution_tpu_torch.tools import convert_vgg
 from super_resolution_tpu_torch.tools.grad_bench import dx_of, make_inputs
 from super_resolution_tpu_torch.tools.kernel_bench import lax_block
 from super_resolution_tpu_torch.train.steps import eval_batch
+from torch_checks import (
+    EVAL_BATCH_PLAIN_DB,
+    GRAD_BENCH_F32_DELTA,
+    eval_batch_checks,
+    sr_vs_plain,
+)
 from torch_spec import VGGFeaturesTorch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -222,8 +227,10 @@ def test_bench_run_on_the_cpu(monkeypatch, capsys):
     assert line["metric"] == "rrdb23_x4_infer_throughput"
     assert line["unit"] == "megapixels/sec/chip"
     assert np.isfinite(line["value"]) and line["value"] > 0
-    assert line["vs_baseline"] == round(
-        line["value"] / bench.CPU_REFERENCE_MP_S, 1)
+    # from the unrounded rate, as bench.run rounds it
+    out_mp = 1 * (16 * gcfg.scale) ** 2 / 1e6
+    mp_s = out_mp / (res["ms_per_batch"] / 1e3)
+    assert line["vs_baseline"] == round(mp_s / bench.CPU_REFERENCE_MP_S, 1)
     assert res["forwards"] == (1 + bench.CHAINS) * 2
     assert len(calls) == res["forwards"] * gcfg.n_blocks * gcfg.n_dense
     assert res["launches"] == {"dense_block": 0}
@@ -242,49 +249,31 @@ def test_bench_without_a_card_refuses():
     assert "'cuda'" in p.stderr and "no CUDA device" in p.stderr
 
 
-@functools.lru_cache(maxsize=None)
-def _smoke():
-    """``chip_smoke.py``, loaded by path."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def _grad_bench_delta():
-    return _smoke().GRAD_BENCH_F32_DELTA
-
-
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("fault", [False, True], ids=["clean", "fault"])
 def test_eval_batch_checks_pass_plain_and_fail_a_planted_fault(dtype, fault):
-    """``chip_smoke.py``'s ``[eval-batch]`` checks at the full depth and
-    a small width, the plain dense block standing in for the kernel:
-    each call within ``TOL`` of its plain version and the SR batch
-    within the model phase's bounds, and a dropped tap in the
+    """``eval_batch``'s card checks (``torch_checks.eval_batch_checks``)
+    at the full depth and a small width, the plain dense block standing
+    in for the kernel: each call within ``TOL`` of its plain version and
+    the SR batch within the model bounds, and a dropped tap in the
     "kernel"'s weights past the call bound in both dtypes and past the
     SR bound in float32.  Full depth, because ``TOL``'s absolute term
     hides the fault in the first blocks, whose values are of order
     1e-2; the deeper blocks' are of order 1."""
-    smoke = _smoke()
     gcfg = GeneratorConfig(filters=16, growth=8,     # 23 blocks
                            init=bench.SEED_INIT)
     sd = rrdb.RRDBNet(gcfg, torch.Generator().manual_seed(0)).state_dict()
     cfg = TrainConfig(generator=gcfg, compute_dtype=dtype)
     hr = np.random.default_rng(6).integers(0, 256, (2, 32, 32, 3),
                                            dtype=np.uint8)
-    with no_tf32():
-        with smoke.PlainKernels():
-            plain, sr_plain = smoke.eval_batch_sr(cfg, sd, hr, "cpu")
-        with smoke.CheckedDenseBlock(
-                dtype, smoke.drop_centre_tap if fault else None) as block:
-            psnr, sr = smoke.eval_batch_sr(cfg, sd, hr, "cpu")
-    _, sr_ok = smoke.sr_vs_plain(sr, sr_plain, dtype)
+    plain, sr_plain, psnr, sr, block = eval_batch_checks(cfg, sd, hr, "cpu",
+                                                         fault)
+    torch_dtype = getattr(torch, dtype)
+    _, sr_ok = sr_vs_plain(sr, sr_plain, torch_dtype)
     assert len(block.excess) == gcfg.n_blocks * gcfg.n_dense
     if not fault:
         assert block.worst() <= 0 and sr_ok
-        assert abs(psnr - plain) <= smoke.EVAL_BATCH_PLAIN_DB[dtype]
+        assert abs(psnr - plain) <= EVAL_BATCH_PLAIN_DB[torch_dtype]
     else:
         assert block.worst() > 0
         assert dtype == "bfloat16" or not sr_ok
@@ -334,6 +323,6 @@ def test_grad_bench_bound_passes_rounding_and_fails_faults(monkeypatch,
     ratio = float((dx - dx_f32).abs().max()) \
         / float((dx_lax - dx_f32).abs().max())
     if fault is None:
-        assert ratio <= 1.0 + _grad_bench_delta()
+        assert ratio <= 1.0 + GRAD_BENCH_F32_DELTA
     else:
-        assert ratio > 2.0 * (1.0 + _grad_bench_delta())
+        assert ratio > 2.0 * (1.0 + GRAD_BENCH_F32_DELTA)
