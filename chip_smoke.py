@@ -49,7 +49,8 @@ nonzero and prints no result line:
    and SwinIR-L's forward at 512² and 1024² with its launches;
    ``[add-layernorm]`` the add-and-LayerNorm kernel at (1, 1024², 240)
    with a branch and without (the library: ``x + b``, then
-   ``F.layer_norm``).
+   ``F.layer_norm``); ``[swin-mlp]`` the MLP kernel at (1, 1024², 240 ->
+   480 -> 240) (the library: ``F.linear``, ``F.gelu``, ``F.linear``).
 4. serve: ``cli upscale`` and ``cli serve --once`` (two frames) on a
    synthetic RGBA frame that needs several tiles, with the full-width
    generator from a seeded BasicSR-named ``.pth``: ×4 shapes, alpha
@@ -199,6 +200,7 @@ from torch_checks import (  # noqa: E402
     read_launch_log,
     rgba_frame,
     seeded_block,
+    swin_mlp_inputs,
 )
 
 # cli upscale in bf16 through the kernel vs through the plain dense
@@ -500,6 +502,39 @@ def add_layernorm_times():
     return out
 
 
+def swin_mlp_times():
+    """The MLP kernel (``csrc/swin_mlp.cu``) at SwinIR-L's widths on a
+    1024² map, (1, 1024², 240 -> 480 -> 240) bf16: its ms in turns with
+    the plain version and the library's (``F.linear``, ``F.gelu``,
+    ``F.linear``: the same PyTorch calls as the plain version), against
+    its bound: 4·240·480 FLOP a token at the bf16 peak (bound by
+    operations: h read and y written, 960 bytes a token, take 0.30 ms)."""
+    import torch
+    import torch.nn.functional as F
+
+    from super_resolution_tpu_torch.ops import swin_mlp as sm
+
+    shape, hidden = (1, 1024, 1024, 240), 480
+    h, w1, b1, w2, b2 = swin_mlp_inputs(torch.device("cuda"), shape, hidden)
+    tokens, e = math.prod(shape[:-1]), shape[-1]
+    flops, nbytes = 4.0 * tokens * e * hidden, 4.0 * tokens * e
+    t_ops = flops / PEAK_FLOPS["bfloat16"] * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    bound = (max(t_ops, t_bytes),
+             "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+    with torch.inference_mode():
+        out = timed({
+            "kernel": lambda: sm.swin_mlp(h, w1, b1, w2, b2),
+            "plain": lambda: sm.swin_mlp_plain(h, w1, b1, w2, b2),
+            "library": lambda: F.linear(F.gelu(F.linear(h, w1, b1)), w2,
+                                        b2)}, 20, bound, shape=list(shape),
+            hidden=hidden, dtype="bfloat16")
+    del h
+    torch.cuda.empty_cache()
+    print("[swin-mlp] " + json.dumps(out), flush=True)
+    return out
+
+
 def swinir_times():
     """SwinIR's window attention (``csrc/window_attention.cu``) at
     SwinIR-L's widths (240, 8 heads of 30) on a 1024² map (the size of
@@ -507,12 +542,13 @@ def swinir_times():
     plain version and the library's, against its roofline (the q, k, v
     read and the output written at 3.35 TB/s); and SwinIR-L's whole bf16
     forward at 512² and 1024² through ``make_infer_fn``, with the
-    attention and add-and-LayerNorm launches of those forwards."""
+    attention, add-and-LayerNorm and MLP launches of those forwards."""
     import torch
 
     from super_resolution_tpu_torch.config import preset
     from super_resolution_tpu_torch.models.swinir import SwinIR
     from super_resolution_tpu_torch.ops import add_layernorm as aln
+    from super_resolution_tpu_torch.ops import swin_mlp as sm
     from super_resolution_tpu_torch.ops import window_attention as wa
     from super_resolution_tpu_torch.train.steps import make_infer_fn
 
@@ -542,7 +578,8 @@ def swinir_times():
     model = SwinIR(cfg.generator, torch.Generator().manual_seed(19))
     infer = make_infer_fn(cfg, model.state_dict(), dev)
     frames = {}
-    launches = (wa.window_attention.launches, aln.add_layernorm.launches)
+    launches = (wa.window_attention.launches, aln.add_layernorm.launches,
+                sm.swin_mlp.launches)
     for side in (512, 1024):
         x = torch.rand(1, side, side, 3, device=dev) - 0.45
         infer(x)
@@ -559,6 +596,7 @@ def swinir_times():
                launches_forward=wa.window_attention.launches - launches[0],
                add_layernorm_launches_forward=aln.add_layernorm.launches
                - launches[1],
+               swin_mlp_launches_forward=sm.swin_mlp.launches - launches[2],
                ms=mean("kernel"), plain_ms=mean("plain"),
                library_ms=mean("library"))
     print("[swinir] " + json.dumps(out), flush=True)
@@ -2732,6 +2770,7 @@ def main() -> int:
     int8 = int8_times()
     swin = swinir_times()
     aln = add_layernorm_times()
+    mlp = swin_mlp_times()
     serve, sd_serve = serve_phase()
     with tempfile.TemporaryDirectory() as work:
         ck = os.path.join(work, "ck")
@@ -2936,6 +2975,17 @@ def main() -> int:
         "plain_ms_by_kind": aln["plain_ms"],
         "bound_ms_by_kind": aln["bound_ms"],
         "library_ms_by_kind": aln["library_ms"],
+    }, {
+        "name": "swin_mlp",
+        "route": "cuda",
+        "source": "super_resolution_tpu_torch/csrc/swin_mlp.cu",
+        # the JAX package has no SwinIR
+        "replaces": None,
+        # SwinIR-L's forwards of the swinir timing: 54 a forward
+        "launches": swin["swin_mlp_launches_forward"],
+        # (1, 1024, 1024, 240) bf16, hidden 480; the library: F.linear,
+        # F.gelu, F.linear
+        **times(mlp),
     }]}))
     print(f"[time] chip_smoke took {time.perf_counter() - t_start:.1f} s "
           f"from the card check to the result", file=sys.stderr, flush=True)

@@ -39,7 +39,8 @@ SOURCES = {"dense_block": "dense_block.cu",
            "conv3x3": "conv3x3.cu",
            "dense_block_int8": "dense_block_int8.cu",
            "window_attention": "window_attention.cu",
-           "add_layernorm": "add_layernorm.cu"}
+           "add_layernorm": "add_layernorm.cu",
+           "swin_mlp": "swin_mlp.cu"}
 # headers under csrc/ that the sources include
 HEADERS = ("conv3x3_tile.cuh", "conv3x3_wgmma.cuh")
 

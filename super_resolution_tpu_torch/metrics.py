@@ -196,7 +196,8 @@ _LAUNCH_COUNTERS = {"dense_block": "dense_block",
                     "fused_dense_block": "dense_block",
                     "conv3x3": "conv3x3",
                     "window_attention": "window_attention",
-                    "add_layernorm": "add_layernorm"}
+                    "add_layernorm": "add_layernorm",
+                    "swin_mlp": "swin_mlp"}
 
 
 def _launches() -> Dict[str, int]:

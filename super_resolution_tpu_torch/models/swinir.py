@@ -42,11 +42,14 @@ SwinIR's token layout.  Every 3×3 conv runs :func:`ops.conv3x3.conv3x3`
 (the single-conv kernel on the card; on the tail through
 :meth:`models.rrdb.Conv3x3.cf`), the 1×1 conv is a Linear, and the
 '3conv' stacks' E/4 = 60 channels are padded to 64 with zero weights and
-biases when the model is prepared, so no call pads or copies; the Linears
-and GELU are PyTorch's ops in the compute dtype, and so is the token
-stream between them.  On CPU tensors every kernel's plain version runs
-(for the adds and LayerNorms PyTorch's own ops); in float32 with TF32
-off.
+biases when the model is prepared, so no call pads or copies.  Each
+layer's MLP branch, fc1, GELU and fc2, is one
+:func:`ops.swin_mlp.swin_mlp` call, which keeps the hidden on chip; its
+weights are laid out for the kernel when the model is prepared
+(:func:`ops.swin_mlp.kernel_weights`: E 60 and 180 padded to 64 and
+184); qkv and proj are PyTorch's Linears in the compute dtype.  On CPU
+tensors every kernel's plain version runs (for the adds, LayerNorms and
+MLPs PyTorch's own ops); in float32 with TF32 off.
 
 :meth:`SwinIR.prepare` casts to the compute dtype and packs once, after
 the weights are loaded, and on the card builds the kernels.
@@ -71,6 +74,7 @@ from super_resolution_tpu_torch.models.tail import upsample_tail
 from super_resolution_tpu_torch.ops.add_layernorm import add_layernorm
 from super_resolution_tpu_torch.ops.conv3x3 import conv3x3
 from super_resolution_tpu_torch.ops.dense_block import pack_weight
+from super_resolution_tpu_torch.ops.swin_mlp import kernel_weights, swin_mlp
 from super_resolution_tpu_torch.ops.window_attention import (
     TABLE_ROWS,
     WINDOW,
@@ -183,8 +187,8 @@ class SwinLayer(nn.Module):
                    "qkv": _cast(self.attn.qkv, dtype),
                    "proj": _cast(self.attn.proj, dtype),
                    "n2": _cast(self.norm2, dtype),
-                   "fc1": _cast(self.mlp.fc1, dtype),
-                   "fc2": _cast(self.mlp.fc2, dtype),
+                   "mlp": kernel_weights(*_cast(self.mlp.fc1, dtype),
+                                         *_cast(self.mlp.fc2, dtype)),
                    "table": table.t().float().contiguous()}
 
     def branches(self) -> tuple:
@@ -201,8 +205,7 @@ class SwinLayer(nn.Module):
         return F.linear(a, *p["proj"])
 
     def _mlp(self, h: torch.Tensor) -> torch.Tensor:
-        p = self._p
-        return F.linear(F.gelu(F.linear(h, *p["fc1"])), *p["fc2"])
+        return swin_mlp(h, *self._p["mlp"])
 
 
 class _Group(nn.Module):
@@ -296,9 +299,9 @@ class SwinIR(nn.Module):
     def prepare(self, dtype: torch.dtype) -> "SwinIR":
         """Cast to the compute dtype and pack the convs' weights, on the
         parameters' device, and there build the attention kernel, the
-        add-and-LayerNorm kernel and the 3×3 conv's together (an RRDB
-        model never builds the first two).  Call after loading weights or
-        moving the model; returns self."""
+        add-and-LayerNorm kernel, the MLP kernel and the 3×3 conv's
+        together (an RRDB model never builds the first three).  Call after
+        loading weights or moving the model; returns self."""
         for m in self.modules():
             if isinstance(m, (SwinLayer, _ThreeConv)):
                 m.prepare(dtype)
@@ -313,7 +316,8 @@ class SwinIR(nn.Module):
         if self._device.type == "cuda":
             from super_resolution_tpu_torch.build import load_all
 
-            load_all(("window_attention", "add_layernorm", "conv3x3"))
+            load_all(("window_attention", "add_layernorm", "swin_mlp",
+                      "conv3x3"))
         return self
 
     def _trunk(self, fea: torch.Tensor) -> torch.Tensor:

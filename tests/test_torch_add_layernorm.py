@@ -111,7 +111,8 @@ def _forward_before_the_fusion(model, x):
                                      layer.heads, layer.shift)
                 u = u + F.linear(a, *p["proj"])
                 hn = F.layer_norm(u, e, *p["n2"], LN_EPS)
-                u = u + F.linear(F.gelu(F.linear(hn, *p["fc1"])), *p["fc2"])
+                w1, b1, w2, b2 = p["mlp"]
+                u = u + F.linear(F.gelu(F.linear(hn, w1, b1)), w2, b2)
             t = t + rstb.conv(u)
         t = F.layer_norm(t, e, *model._ln["norm"], LN_EPS)
         fea = model.conv_after_body(t) + fea

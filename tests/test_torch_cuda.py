@@ -6,8 +6,8 @@ input checks, at small shapes and at the main path's (the flagship
 block, the CLI's tile batches, the training shape, SwinIR-L's 1024²
 maps); the generator under every conv impl (lax included) with either
 tail, up to full width; the RRDB trunk on the chain bit for bit against
-the same trunk block by block; SwinIR's window-attention and
-add-and-LayerNorm kernels and its bf16 forward; training steps, the
+the same trunk block by block; SwinIR's window-attention,
+add-and-LayerNorm and MLP kernels and its bf16 forward; training steps, the
 CLI's upscale and train, ``eval_batch`` and the headline bench on CUDA.
 Marked ``cuda``; each skips where torch sees no CUDA device.  On a
 machine with a card (no JAX needed there), alone or as part of
@@ -75,6 +75,7 @@ from torch_checks import (
     rgba_frame,
     seeded_block,
     sr_vs_plain,
+    swin_mlp_inputs,
 )
 
 pytestmark = pytest.mark.cuda
@@ -109,6 +110,14 @@ CONV_TOL = {torch.bfloat16: (2.0 ** -8, 2.0 ** -7),
 # elementwise atol = rtol: the output rounded to bf16 once and P once for
 # P.v, about two bf16 ULPs of values of order 1
 SWINIR_ATTN_TOL = 2.0 ** -6
+# the MLP kernel's largest error against the float32 MLP, over the bf16
+# plain version's (PyTorch's three calls): both end in the same rounding
+# of y to bf16, which makes most of the largest error; the kernel rounds
+# the hidden once where the plain version rounds it twice, but sums fc1
+# and fc2 in another order, which can move a y that sits near a rounding
+# boundary to the other side (a fraction of an output ULP at the largest
+# values: 1.25 leaves room for that and for nothing larger)
+SWIN_MLP_ERR_RATIO = 1.25
 # the polyphase tail against the naive tail, float32, TF32 off
 POLY_FP32_TOL = (2e-5, 1e-5)
 # cli upscale of one frame under another conv impl against the default
@@ -1268,21 +1277,24 @@ def test_window_attention_kernel_matches_plain(cuda, b, hp, wp, shift):
 @pytest.mark.parametrize("side", [512, 1024])
 def test_swinir_l_forward_launches_per_layer(cuda, side):
     """SwinIR-L's whole bf16 forward through ``make_infer_fn`` on a
-    side² frame: one window-attention launch per Swin layer (54) and 110
-    add-and-LayerNorm launches."""
+    side² frame: one window-attention launch and one MLP launch per Swin
+    layer (54 each) and 110 add-and-LayerNorm launches."""
     from super_resolution_tpu_torch.models.swinir import SwinIR
     from super_resolution_tpu_torch.ops import add_layernorm as aln
+    from super_resolution_tpu_torch.ops import swin_mlp as sm
     from super_resolution_tpu_torch.ops import window_attention as wa
 
     cfg = preset("swinir_l_real_x4")
     sd = SwinIR(cfg.generator, torch.Generator().manual_seed(19)).state_dict()
     infer = make_infer_fn(cfg, sd, cuda)
     x = torch.rand(1, side, side, 3, device=cuda) - 0.45
-    before = (wa.window_attention.launches, aln.add_layernorm.launches)
+    before = (wa.window_attention.launches, aln.add_layernorm.launches,
+              sm.swin_mlp.launches)
     out = infer(x)
     torch.cuda.synchronize()
     assert (wa.window_attention.launches - before[0],
-            aln.add_layernorm.launches - before[1]) == (54, 110)
+            aln.add_layernorm.launches - before[1],
+            sm.swin_mlp.launches - before[2]) == (54, 110, 54)
     assert out.shape == (1, 4 * side, 4 * side, 3)
 
 
@@ -1364,6 +1376,120 @@ def test_add_layernorm_rejects_instead_of_falling_back(cuda):
                           b.bfloat16(), 1e-5)
 
 
+def _swin_mlp_f32(h, w1, b1, w2, b2):
+    """The same function in float32 from the same bf16 values: the exact
+    erf GELU, nothing rounded."""
+    import torch.nn.functional as F
+
+    assert not torch.backends.cuda.matmul.allow_tf32    # full float32
+    u = F.linear(h.float(), w1.float(), b1.float())
+    return F.linear(F.gelu(u), w2.float(), b2.float())
+
+
+# the hidden width of each E the MLP kernel test runs, where not 2 E
+SWIN_MLP_HIDDEN = {100: 203, 32: 2048}
+
+
+@pytest.mark.parametrize("shape", [(1, 1024, 1024, 240), (1, 104, 88, 240),
+                                   (2, 104, 88, 240), (1, 64, 64, 180),
+                                   (1, 64, 64, 60), (1, 37, 41, 236),
+                                   (2, 37, 41, 100), (1, 24, 40, 32)])
+def test_swin_mlp_kernel_matches_float32(cuda, shape):
+    """The MLP kernel against the float32 MLP: its largest error at most
+    ``SWIN_MLP_ERR_RATIO`` times the bf16 plain version's.  At SwinIR-L's
+    widths (240 → 480 → 240, compiled with E as a constant) on the SD
+    cell's 1024² map, on 104 × 88 tokens (9,152: the last tile of 128
+    ragged) and at batch 2; then the path with E read at run time: SwinIR-M's
+    180 → 360 and the lightweight model's 60 → 120 (rows of 360 and 120
+    bytes, copied 8 bytes at a time, W1 padded to 184 and 64 columns),
+    236 → 472 (copied, fc2's widest N), 100 → 203 (E past a k16 step,
+    the hidden padded to 208, a chunk of 16), 32 → 2048 (one K block of
+    32, the widest hidden), on ragged tiles.  One launch, the tokens
+    counted.  Two planted faults fail that bound: fc1's bias dropped,
+    and the last hidden chunk of 64 left out."""
+    from super_resolution_tpu_torch.metrics import recording, span_report
+    from super_resolution_tpu_torch.ops import swin_mlp as sm
+
+    e = shape[-1]
+    hidden = SWIN_MLP_HIDDEN.get(e, 2 * e)
+    h, w1, b1, w2, b2 = swin_mlp_inputs(cuda, shape, hidden)
+    ref = _swin_mlp_f32(h, w1, b1, w2, b2)
+    before = sm.swin_mlp.launches
+    with recording():
+        got = sm.swin_mlp(h, *sm.kernel_weights(w1, b1, w2, b2))
+        counters = span_report()["counters"]
+    assert sm.swin_mlp.launches == before + 1
+    assert counters["swin_mlp.tokens"] == math.prod(shape[:-1])
+    assert got.dtype == torch.bfloat16 and got.shape == h.shape
+
+    def err(y):
+        return (y.float() - ref).abs().max().item()
+
+    bound = SWIN_MLP_ERR_RATIO * err(sm.swin_mlp_plain(h, w1, b1, w2, b2))
+    e_kernel = err(got)
+    no_bias = err(sm.swin_mlp(h, *sm.kernel_weights(
+        w1, torch.zeros_like(b1), w2, b2)))
+    cut = hidden - 64
+    no_chunk = err(sm.swin_mlp(h, *sm.kernel_weights(
+        w1[:cut].contiguous(), b1[:cut].contiguous(),
+        w2[:, :cut].contiguous(), b2)))
+    print(f"swin_mlp {shape}: max error {e_kernel:.4g}, bound {bound:.4g}; "
+          f"fc1 bias dropped {no_bias:.4g}, a chunk left out {no_chunk:.4g}")
+    assert e_kernel <= bound
+    assert no_bias > bound and no_chunk > bound
+
+
+def test_swin_mlp_gelu_is_the_erf_form(cuda):
+    """GELU through the kernel itself: W1 and W2 identity slices, biases
+    0, so y = bf16(GELU(h)), on a grid of 245,760 bf16 values over
+    [−4, 4]: every value within one bf16 ULP of the erf form (float64).
+    The tanh form lies 6-7 ULP away near −2.5 (−0.01515 against
+    −0.01553), so it fails the same bound there."""
+    import math as m
+
+    from super_resolution_tpu_torch.ops import swin_mlp as sm
+
+    e, hidden = 240, 480
+    h = torch.linspace(-4, 4, 1024 * e, device=cuda).view(1024, e).to(
+        torch.bfloat16)
+    eye = torch.eye(e, device=cuda, dtype=torch.bfloat16)
+    w1 = torch.cat([eye, torch.zeros_like(eye)])
+    w2 = torch.cat([eye, torch.zeros_like(eye)], 1).contiguous()
+    zeros = torch.zeros(hidden, device=cuda, dtype=torch.bfloat16)
+    got = sm.swin_mlp(h, w1, zeros, w2, zeros[:e]).double()
+    x = h.double()
+    erf_form = 0.5 * x * (1 + torch.erf(x / m.sqrt(2)))
+    tanh_form = 0.5 * x * (1 + torch.tanh(m.sqrt(2 / m.pi) * (
+        x + 0.044715 * x ** 3)))
+    _, ex = torch.frexp(erf_form.abs().clamp(min=1e-30))
+    ulp = torch.ldexp(torch.ones_like(erf_form), ex - 8)
+    err = (got - erf_form).abs() / ulp
+    assert err.max() <= 1, f"{err.max().item()} ULP"
+    tanh_err = (tanh_form.to(torch.bfloat16).double() - erf_form).abs() / ulp
+    near = (x - (-2.5)).abs() < 0.05
+    assert tanh_err[near].max() > 4
+
+
+def test_swin_mlp_rejects_instead_of_falling_back(cuda):
+    from super_resolution_tpu_torch.ops import swin_mlp as sm
+
+    h, w1, b1, w2, b2 = swin_mlp_inputs(cuda, (1, 16, 16, 240))
+    with pytest.raises(TypeError, match="bf16"):
+        sm.swin_mlp(h.float(), w1.float(), b1.float(), w2.float(),
+                    b2.float())
+    with pytest.raises(ValueError, match="w1 must be"):  # E 60, W1 unpadded
+        sm.swin_mlp(h[..., :60].contiguous(), w1[:120, :60].contiguous(),
+                    b1[:120], w2[:60, :120].contiguous(), b2[:60])
+    wide = swin_mlp_inputs(cuda, (1, 8, 8, 248), 496)
+    with pytest.raises(ValueError, match="multiple of 4 up to 240"):
+        sm.swin_mlp(*wide)
+    with pytest.raises(ValueError, match="multiple of 4 up to 240"):
+        sm.kernel_weights(*wide[1:])
+    hb = torch.zeros(16 * 240 + 4, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="launch failed"):  # misaligned
+        sm.swin_mlp(hb[4:].view(16, 240), w1, b1, w2, b2)
+
+
 SWIN_CFG = dict(embed_dim=240, depths=(2, 2), num_heads=(8, 8),
                 window_size=8, mlp_ratio=2.0, num_feat=64)
 
@@ -1382,7 +1508,8 @@ def _swinir_on_the_card(cuda, released, x):
 
 def test_swinir_on_the_card_matches_the_reference(cuda, monkeypatch):
     """SwinIR at SwinIR-L's widths, two RSTBs of a plain and a shifted
-    layer, in bf16 on the card against the float32 reference on the CPU,
+    layer, in bf16 on the card (LayerNorm, GELU and the MLP's Linears
+    never PyTorch's) against the float32 reference on the CPU,
     on a 100 × 84 frame (padded to 104 × 88): the largest error within
     2**-5 of the largest output (bf16 rounding through 4 layers and 9
     convs, and of the bf16 residual stream at each of its 10 additions:
@@ -1393,6 +1520,7 @@ def test_swinir_on_the_card_matches_the_reference(cuda, monkeypatch):
     import swinir_reference as R
     from super_resolution_tpu_torch.models import swinir as sw
     from super_resolution_tpu_torch.ops import add_layernorm as aln
+    from super_resolution_tpu_torch.ops import swin_mlp as sm
     from super_resolution_tpu_torch.ops import window_attention as wa
 
     released = R.released_state_dict(SWIN_CFG, 7)
@@ -1408,20 +1536,36 @@ def test_swinir_on_the_card_matches_the_reference(cuda, monkeypatch):
         ref = R.forward(released, SWIN_CFG, x.permute(0, 3, 1, 2)
                         ).permute(0, 2, 3, 1)
     before = (wa.window_attention.launches, c3_ops.conv3x3.launches,
-              aln.add_layernorm.launches)
+              aln.add_layernorm.launches, sm.swin_mlp.launches)
 
     def no_library_layer_norm(*args, **kw):
         raise AssertionError("PyTorch's LayerNorm on the card path")
 
+    def no_library_gelu(*args, **kw):
+        raise AssertionError("PyTorch's GELU on the card path")
+
+    linear, linear_widths = torch.nn.functional.linear, []
+
+    def seen_linear(x, w, *args, **kw):
+        linear_widths.append(tuple(w.shape))
+        return linear(x, w, *args, **kw)
+
     with monkeypatch.context() as patch:
         patch.setattr(torch.nn.functional, "layer_norm",
                       no_library_layer_norm)
+        patch.setattr(torch.nn.functional, "gelu", no_library_gelu)
+        patch.setattr(torch.nn.functional, "linear", seen_linear)
         got = _swinir_on_the_card(cuda, released, x)
-    # 2 · Σ depths adds with the next LayerNorm, and the two at the head
+    # 2 · Σ depths adds with the next LayerNorm, and the two at the head;
+    # one MLP launch a layer, and no fc1 (480, 240) or fc2 (240, 480)
+    # through PyTorch's Linear
     assert (wa.window_attention.launches - before[0],
             c3_ops.conv3x3.launches - before[1],
-            aln.add_layernorm.launches - before[2]) == (
-                4, 2 * 2 + 2 + 1 + 1 + 3, 2 * 4 + 2)
+            aln.add_layernorm.launches - before[2],
+            sm.swin_mlp.launches - before[3]) == (
+                4, 2 * 2 + 2 + 1 + 1 + 3, 2 * 4 + 2, 4)
+    assert linear_widths and not {(480, 240), (240, 480)} & set(
+        linear_widths), linear_widths
     err = (got - ref).abs()
     real = sw.window_attention
     monkeypatch.setattr(sw, "window_attention",
@@ -1431,6 +1575,65 @@ def test_swinir_on_the_card_matches_the_reference(cuda, monkeypatch):
     print(f"swinir on the card: error max {err.max().item():.3e} mean "
           f"{err.mean().item():.3e} (largest output "
           f"{ref.abs().max().item():.3e}); shift skipped: mean "
+          f"{fault.mean().item():.3e}")
+    assert err.max() <= 2.0 ** -5 * ref.abs().max()
+    assert fault.mean() > 4 * err.mean()
+
+
+def test_swinir_mlp_kernel_at_another_width_on_the_card(cuda, monkeypatch):
+    """SwinIR at E 120 (4 heads of 30, hidden 240), two RSTBs of a plain
+    and a shifted layer, in bf16 on the card against the float32
+    reference on the CPU, with the reference test's weights and frame:
+    the MLP kernel's path with E read at run time inside a forward (two K
+    blocks, the second partly past E; fc2's N as 64 + 32 + 16 + 8; a last
+    hidden chunk of 48), one launch a layer, no fc1 or fc2 through
+    PyTorch's Linear and no PyTorch GELU; the largest error within the
+    same 2**-5 of the largest output, and the mean error four times under
+    that of the same model with the MLP branch left out on the card.
+    (SwinIR-M's 180 and the lightweight 60 do not run on the card: the
+    window-attention kernel takes heads · head dim a multiple of 8.)"""
+    import swinir_reference as R
+    from super_resolution_tpu_torch.models import swinir as sw
+    from super_resolution_tpu_torch.ops import swin_mlp as sm
+
+    embed = 120
+    cfg = dict(SWIN_CFG, embed_dim=embed, num_heads=(4, 4))
+    released = R.released_state_dict(cfg, 7)
+    tail = ("conv_before_upsample", "conv_up", "conv_hr", "conv_last")
+    for k, v in released.items():
+        if k.endswith("relative_position_bias_table"):
+            released[k] = 3 * v
+        elif v.dim() == 4 and not k.startswith(tail):
+            released[k] = 6 ** 0.5 * v
+    x = torch.rand(1, 100, 84, 3, generator=torch.Generator()
+                   .manual_seed(8)) - 0.45
+    with torch.no_grad():
+        ref = R.forward(released, cfg, x.permute(0, 3, 1, 2)
+                        ).permute(0, 2, 3, 1)
+    before = sm.swin_mlp.launches
+
+    def no_library_gelu(*args, **kw):
+        raise AssertionError("PyTorch's GELU on the card path")
+
+    linear, linear_widths = torch.nn.functional.linear, []
+
+    def seen_linear(x, w, *args, **kw):
+        linear_widths.append(tuple(w.shape))
+        return linear(x, w, *args, **kw)
+
+    with monkeypatch.context() as patch:
+        patch.setattr(torch.nn.functional, "gelu", no_library_gelu)
+        patch.setattr(torch.nn.functional, "linear", seen_linear)
+        got = _swinir_on_the_card(cuda, released, x)
+    assert sm.swin_mlp.launches - before == 4
+    assert linear_widths and not {(2 * embed, embed), (embed, 2 * embed)} & (
+        set(linear_widths)), linear_widths
+    err = (got - ref).abs()
+    monkeypatch.setattr(sw, "swin_mlp", lambda h, *w: torch.zeros_like(h))
+    fault = (_swinir_on_the_card(cuda, released, x) - ref).abs()
+    print(f"swinir E {embed} on the card: error max {err.max().item():.3e} "
+          f"mean {err.mean().item():.3e} (largest output "
+          f"{ref.abs().max().item():.3e}); MLP left out: mean "
           f"{fault.mean().item():.3e}")
     assert err.max() <= 2.0 ** -5 * ref.abs().max()
     assert fault.mean() > 4 * err.mean()

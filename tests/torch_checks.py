@@ -228,6 +228,23 @@ def seeded_block(shape, growth, dtype, device, seed=0, n=5,
     return x, ws, bs
 
 
+def swin_mlp_inputs(device, shape, hidden=480, seed=0):
+    """An MLP branch's bf16 inputs at SwinIR's layout: h (…, E) like a
+    LayerNorm's output, and W1 (hidden, E), b1, W2 (E, hidden), b2 as
+    nn.Linear's default draws them (the benchmark's draw of SwinIR's
+    Linears)."""
+    gen = torch.Generator(device=device).manual_seed(seed + sum(shape))
+    e = shape[-1]
+
+    def uniform(*size, fan_in):
+        return ((torch.rand(*size, generator=gen, device=device) * 2 - 1)
+                * fan_in ** -0.5).to(torch.bfloat16)
+
+    h = torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+    return (h, uniform(hidden, e, fan_in=e), uniform(hidden, fan_in=e),
+            uniform(e, hidden, fan_in=hidden), uniform(e, fan_in=hidden))
+
+
 def launch_counters():
     """Kernel name -> the wrapper that counts its launches."""
     db = importlib.import_module("super_resolution_tpu_torch.ops.dense_block")
